@@ -64,7 +64,7 @@ THRESHOLDS = (0.5, 0.7, 0.9)
 TOPK = 10
 CHECK_BATCHES = 4
 
-# Published H100 SXM peaks (on-chip-measurement guide): HBM rate, and the
+# Published H100 SXM peaks: HBM rate, and the
 # float32 rate outside the tensor cores, used for the kernels' ALU work.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
