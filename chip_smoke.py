@@ -174,9 +174,13 @@ def phase_build(batch: RaggedBatch, budget: int):
     tail_budget = max(budget - batch.num_records * (-(-r // 32) if r else 0),
                       batch.num_records)
 
+    # The tail budget is floored at one slot per record; where the buffer
+    # words take most of the budget, the floor is what the tail gets.
     out = {"phase": "build", "records": batch.num_records,
            "element_ids": batch.total, "budget": budget, "r": r,
-           "tail_ids": int((~is_top).sum()), "host_part_s": host_part_s}
+           "tail_ids": int((~is_top).sum()), "tail_budget": tail_budget,
+           "tail_budget_at_floor": tail_budget == batch.num_records,
+           "host_part_s": host_part_s}
     serving = None
     for tau_mode in ("exact", "histogram"):
         t0 = time.perf_counter()
@@ -208,8 +212,12 @@ def phase_build(batch: RaggedBatch, budget: int):
         require(np.array_equal(dev.core.top_elems, host.top_elems)
                 and dev.core.buffer_bits == host.buffer_bits == r,
                 f"{tau_mode} buffer elements equal")
+        lengths = dcols["lengths"]
         out[tau_mode] = {"tau": int(dev.core.tau),
                          "capacity": dev.core.sketches.capacity,
+                         "mean_length": float(lengths.mean()),
+                         "rows_by_length": np.bincount(
+                             np.minimum(lengths, 4)).tolist(),
                          "buf_words": dev.core.sketches.buf_words,
                          "arena_bytes": dev.core.sketches.nbytes(),
                          "api_build_s": api_build_s,
@@ -398,14 +406,18 @@ def phase_parity(index, batch, tail_mask, query_batch) -> dict:
                 and torch.equal(keep.bool(), keep_want),
                 f"hash_threshold kernel equals plain version at tau={tau}")
         err = max(err, int((as_u64(h) - h_want).abs().max()))
+    h, keep = hash_threshold(ids32, 0)       # the device build's form
+    sync()
+    require(keep is None and torch.equal(as_u64(h), h_want),
+            "hash_threshold kernel (hashes only) equals plain version")
     tail32 = ids32[: len(tail)]
-    tau = int(index.core.tau)
     n = tail32.numel()
+    # Timed as the device build calls it: hashes only, 4 B in, 4 B out.
     results["hash_threshold"] = {
         "shape": [n], "max_abs_err": float(err), "parity": "exact",
-        "ms": cuda_ms(lambda: hash_threshold(tail32, 0, tau), 50),
-        "plain_ms": cuda_ms(lambda: ref.hash_threshold_ref(tail32, 0, tau), 5),
-        "bytes": 12 * n, "ops": 11 * n,
+        "ms": cuda_ms(lambda: hash_threshold(tail32, 0), 50),
+        "plain_ms": cuda_ms(lambda: ref.hash_threshold_ref(tail32, 0, None), 5),
+        "bytes": 8 * n, "ops": 11 * n,
     }
 
     # -- B1 at the main path's shapes plus edge cases --------------------------
@@ -432,16 +444,29 @@ def phase_parity(index, batch, tail_mask, query_batch) -> dict:
     m, c = x.values.shape
     gq, cq = qp.values.shape
     w = x.buf.shape[1]
+    xu = as_u64(x.values)
     tau_pair = torch.minimum(as_u64(x.thresh)[:, None],
                              as_u64(qp.thresh)[None, :])       # [m, gq]
-    live = sum(int((as_u64(x.values) <= tau_pair[:, g:g + 1]).sum()
-                   + (as_u64(qp.values[g])[None, :]
-                      <= tau_pair[:, g:g + 1]).sum()) for g in range(gq))
+    live_x = sum(int((xu <= tau_pair[:, g:g + 1]).sum()) for g in range(gq))
+    live = live_x + sum(int((as_u64(qp.values[g])[None, :]
+                             <= tau_pair[:, g:g + 1]).sum()) for g in range(gq))
+    # Bytes the function must move. A record row is read only up to its
+    # first value above τ_pair (or its end): with the largest τ_pair of the
+    # batch, that is min(C, n + 1) values, in whole 32-B sectors (rows start
+    # on a sector, as C is a multiple of 8). Then the thresholds, buffers,
+    # the query pack, and the f32[M, Gq] output written once.
+    tau_row = torch.minimum(as_u64(x.thresh), as_u64(qp.thresh).max())
+    reads = torch.clamp_max((xu <= tau_row[:, None]).sum(1) + 1, c)
+    start = torch.arange(m, device=xu.device) * (4 * c)
+    sectors = int(((start + 4 * reads - 1) // 32 - start // 32 + 1).sum())
     results["gbkmv_score"] = {
         "shape": [m, c, gq, cq, w], "max_abs_err": err, "parity": "exact",
         "ms": cuda_ms(lambda: gbkmv_score(*args), 50),
         "plain_ms": cuda_ms(lambda: ref.gbkmv_score_ref(*args), 3),
-        "bytes": 4 * (m * (c + 1 + w) + gq * (cq + 2 + w) + m * gq),
+        "live_x_per_pair": live_x / (m * gq),
+        "row_values_read_per_record": float(reads.float().mean()),
+        "row_bytes": 32 * sectors,
+        "bytes": 32 * sectors + 4 * (m * (1 + w) + gq * (cq + 2 + w) + m * gq),
         # Per pair: the live-prefix counts and the merge (each at most
         # n_x + n_q steps), an AND and a popcount per buffer word, and
         # about a dozen float operations in the tail.
@@ -449,7 +474,9 @@ def phase_parity(index, batch, tail_mask, query_batch) -> dict:
     }
     emit({"phase": "parity", **{k: {"shape": v["shape"], "parity": "exact",
                                     "max_abs_err": v["max_abs_err"]}
-                                for k, v in results.items()}})
+                                for k, v in results.items()},
+          "gbkmv_score_load": {k: results["gbkmv_score"][k] for k in (
+              "live_x_per_pair", "row_values_read_per_record", "row_bytes")}})
     return results
 
 

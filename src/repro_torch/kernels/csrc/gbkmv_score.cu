@@ -9,10 +9,10 @@
 //        when k ≥ 2 and K∩ ≥ 1, else K∩ (or 0);
 //   o1 = popcount(buf_X & buf_Q);   score = (o1 + D̂∩) / max(|Q|, 1).
 //
-// Bound on the H100: memory. The record columns (values, threshold, buffer)
-// are read once and the f32[M, Gq] matrix written once; the per-pair work
-// is O(C + Cq) integer compares, a few hundred operations against tens of
-// bytes per pair, well under the card's operation rate.
+// Bound on the H100: memory. Each record row is read up to its first value
+// above τ (not its padded width), its threshold and buffer once, and the
+// f32[M, Gq] matrix written once; the per-pair work is O(n_x + n_q) integer
+// compares, far under the card's operation rate.
 //
 // Design: the TPU kernel broadcasts equality over 128-lane query chunks,
 // the natural form of a vector unit. Here each thread takes one pair and

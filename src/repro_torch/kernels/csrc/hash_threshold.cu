@@ -3,9 +3,11 @@
 // Replaces the Pallas kernel `_hash_kernel` of
 // src/repro/kernels/hash_threshold.py (B2), which mixes [R, 128] lane tiles.
 //
-// Bound on the H100: memory. Each id costs 4 bytes read and 8 bytes written
-// (the hash and the keep flag) against about ten integer operations, so the
-// pass runs at the card's memory rate (3.35 TB/s), far below its ALU rate.
+// Bound on the H100: memory. Each id costs 4 bytes read and 4 written (the
+// hash; 8 when the caller also asks for the keep flag) against about ten
+// integer operations, so the pass runs at the card's memory rate
+// (3.35 TB/s), far below its ALU rate. The device build asks for hashes
+// only: its τ is chosen from them, so no keep flag could be known yet.
 //
 // Design: one thread per id over the flat stream, grid-stride, with the
 // ragged tail masked by the loop bound — no tile padding, so no byte is
@@ -33,13 +35,13 @@ __global__ void hash_threshold_kernel(const uint32_t* __restrict__ ids,
     h *= 0xC2B2AE35u;
     h ^= h >> 16;
     h_out[i] = h;
-    keep_out[i] = h <= tau ? 1 : 0;
+    if (keep_out != nullptr) keep_out[i] = h <= tau ? 1 : 0;
   }
 }
 
 }  // namespace
 
-// ids, h_out: u32[n]; keep_out: i32[n]. `offset` is 0x9E3779B9·(seed+1)
+// ids, h_out: u32[n]; keep_out: i32[n], or null to write no flags. `offset` is 0x9E3779B9·(seed+1)
 // mod 2^32. Launches on `stream` and returns cudaGetLastError().
 extern "C" int hash_threshold_launch(const void* ids, void* h_out,
                                      void* keep_out, int64_t n,

@@ -27,30 +27,33 @@ from repro_torch.kernels.library import check, library
 _PAD = int(PAD)
 
 
-def hash_threshold(ids: torch.Tensor, seed: int, tau: int
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+def hash_threshold(ids: torch.Tensor, seed: int, tau: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """ids u32[N] (int32 bit patterns) → (hashes u32[N] as int32 bits,
-    keep i32[N] = hash ≤ τ)."""
+    keep i32[N] = hash ≤ τ). With ``tau=None`` the kernel writes hashes
+    only and ``keep`` is None."""
     if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous():
         raise ValueError("ids must be a contiguous 1-D int32 tensor "
                          f"(u32 bit pattern), got {ids.dtype} "
                          f"{tuple(ids.shape)}")
-    tau = int(tau)
-    if not 0 <= tau <= _PAD:
-        raise ValueError(f"tau must be a u32 value, got {tau}")
+    if tau is not None:
+        tau = int(tau)
+        if not 0 <= tau <= _PAD:
+            raise ValueError(f"tau must be a u32 value, got {tau}")
     if ids.device.type == "cpu":
         h, keep = ref.hash_threshold_ref(ids, seed, tau)
-        return as_bits(h), keep.to(torch.int32)
+        return as_bits(h), None if keep is None else keep.to(torch.int32)
     if ids.device.type != "cuda":
         raise ValueError(f"no kernel for device {ids.device}")
     h = torch.empty_like(ids)
-    keep = torch.empty_like(ids)
+    keep = None if tau is None else torch.empty_like(ids)
     if ids.numel():
         lib = library()
         with torch.cuda.device(ids.device):
             err = lib.hash_threshold_launch(
-                ids.data_ptr(), h.data_ptr(), keep.data_ptr(), ids.numel(),
-                seed_offset(seed), tau,
+                ids.data_ptr(), h.data_ptr(),
+                None if keep is None else keep.data_ptr(), ids.numel(),
+                seed_offset(seed), 0 if tau is None else tau,
                 torch.cuda.current_stream().cuda_stream)
         check(err, "hash_threshold_launch")
         hash_threshold.launches += 1
@@ -75,7 +78,7 @@ def _fused_hash_sort(ids32, row, seed: int, *, m: int, budget: int,
     exclusive prefix sum, and τ (0-d).
     """
     n = ids32.numel()
-    h32, _ = hash_threshold(ids32, seed, _PAD)
+    h32, _ = hash_threshold(ids32, seed)
     h = as_u64(h32)
     if budget >= n:
         tau = torch.tensor(_PAD - 1, dtype=torch.int64, device=h.device)

@@ -43,8 +43,8 @@ def gbkmv_score_ref(x_values, x_thresh, x_buf,
     return out
 
 
-def hash_threshold_ref(ids, seed: int, tau: int):
+def hash_threshold_ref(ids, seed: int, tau: int | None):
     """(hashes int64[N] in [0, 2³²), kept bool[N]): murmur-mix then the
-    global-τ filter."""
+    global-τ filter; ``kept`` is None when ``tau`` is None."""
     h = hash_u32(ids, seed=seed)
-    return h, h <= int(tau)
+    return h, None if tau is None else h <= int(tau)

@@ -66,6 +66,10 @@ def test_hash_threshold_kernel_matches_plain(cuda_device):
         h_ref, keep_ref = ref.hash_threshold_ref(ids64, 9, tau)
         assert torch.equal(as_u64(h), h_ref)
         assert torch.equal(keep.bool(), keep_ref)
+    before = hash_threshold.launches
+    h, keep = hash_threshold(ids32, 9)                 # hashes only
+    assert hash_threshold.launches == before + 1 and keep is None
+    assert torch.equal(as_u64(h), ref.hash_threshold_ref(ids64, 9, None)[0])
     empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
     assert hash_threshold(empty, 0, 5)[0].numel() == 0
 

@@ -62,6 +62,16 @@ def test_hash_threshold_plain_matches_jax_oracle(tau):
     np.testing.assert_array_equal(keep_ref.numpy(), np.asarray(keep_want))
 
 
+def test_hash_threshold_hashes_only_matches_jax_oracle():
+    """The device build's form: no τ, so no keep flags are written."""
+    ids = _ids(4, 500)
+    ids32 = (ids.astype(np.uint64) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    h_want, _ = jax_hash_threshold(jnp.asarray(ids32), 5, 0)
+    h, keep = hash_threshold(hashing.to_tensor(ids32), 5)
+    assert keep is None
+    np.testing.assert_array_equal(hashing.to_numpy(h), np.asarray(h_want))
+
+
 def test_hash_threshold_rejects_bad_input():
     with pytest.raises(ValueError):
         hash_threshold(torch.zeros(4, dtype=torch.int64), 0, 5)
