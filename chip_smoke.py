@@ -3,27 +3,34 @@
 
     python3 chip_smoke.py
 
-Runs the port's main path (``repro_torch.api``) at the NETFLIX deployment:
-the repo's NETFLIX spec (α1 1.14, α2 4.95, sizes 10-1200, seed 11) at the
-published record count of paper Table II (480,189 records over 17,770
-elements), budget 10 % of all element ids (the rule of
+Runs the port's main paths (``repro_torch.api``) at the NETFLIX
+deployment: the repo's NETFLIX spec (α1 1.14, α2 4.95, sizes 10-1200,
+seed 11) at the published record count of paper Table II (480,189 records
+over 17,770 elements), budget 10 % of all element ids (the rule of
 benchmarks/bench_planner.py). Each phase prints one JSON line:
 
   card     the card's name and power limit, versions, the kernels' build
   build    device build (B2 kernel) bit-identical to the host build, in
            both τ modes; host and device seconds
   query    64 batches of 16 queries at t ∈ {0.5, 0.7, 0.9} and top-10 for
-           64 queries; hits and rankings of 4 batches checked against the
-           host numpy route over all records; batch latency and QPS
+           64 queries on the dense route; hits and rankings of 4 batches
+           checked against the host numpy route over all records; batch
+           latency and QPS
   save     save/load round trip answers identically
+  pruned   the planned route: postings built lazily and eagerly (equal),
+           plan="auto" on one batch, forced plan="pruned" on 4 batches at
+           each t (hits equal the dense route's, B5 verifies), a stage
+           breakdown, pruned top-10 equal to dense, and a save/load round
+           trip that carries the postings
   parity   each kernel against its plain PyTorch version on the card, at
-           the main path's shapes and on edge cases, exact equality
-  kernels  per kernel: launches on the main path, error, times, bound
+           the main paths' shapes and on edge cases, exact equality
+  kernels  per kernel: launches on the main paths, error, times, bound
 
-The launch counts are set to 0 just before the main path (build, query,
-save) and read just after; the parity phase's launches do not count. Any
-failed check raises, so the script exits non-zero and prints no result.
-The last line is ``{"ok": true, "device": {...}}``.
+Two main paths are counted: the dense path (build, query, save) and the
+planned path (pruned). The launch counts are set to 0 just before each and
+read just after; the parity phase's launches do not count. Any failed
+check raises, so the script exits non-zero and prints no result. The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -50,10 +57,13 @@ from repro_torch.core.sketches import RaggedBatch  # noqa: E402
 from repro_torch.data.datasets import SPECS  # noqa: E402
 from repro_torch.data.synth import generate_dataset, make_query_workload  # noqa: E402
 from repro_torch.kernels import library, ref  # noqa: E402
+from repro_torch.kernels.gather_score import gather_score  # noqa: E402
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
     fused_build_columns, hash_threshold)
-from repro_torch.planner import topk_select  # noqa: E402
+from repro_torch.planner import (choose_plan, f32_threshold,  # noqa: E402
+                                 merged_candidates, postings_equal,
+                                 topk_select)
 
 NUM_RECORDS = 480_189      # paper Table II, Netflix
 UNIVERSE = 17_770
@@ -78,7 +88,16 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/gbkmv_score.cu",
         "replaces": "src/repro/kernels/gbkmv_score.py:43",
     },
+    "gather_score": {
+        "source": "src/repro_torch/kernels/csrc/gather_score.cu",
+        "replaces": "src/repro/kernels/gather_score.py:41",
+    },
 }
+# The kernels each main path must launch.
+PATH_KERNELS = {"dense": ("hash_threshold", "gbkmv_score"),
+                "pruned": ("gather_score",)}
+COUNTERS = {"hash_threshold": hash_threshold, "gbkmv_score": gbkmv_score,
+            "gather_score": gather_score}
 
 
 def emit(obj) -> None:
@@ -245,7 +264,7 @@ def query_breakdown(index, batches, t) -> dict:
     called as ``batch_query`` calls them, with a sync after the device
     work; and the same split for top-k (scores, then the host head)."""
     from repro_torch.core.estimators import containment_matrix
-    from repro_torch.planner import f32_threshold, mask_to_hits
+    from repro_torch.planner import mask_to_hits
 
     x = index.core.sketches.device_pack(index.device)
     thr = torch.tensor([float(f32_threshold(t))], device=x.device)
@@ -293,14 +312,14 @@ def phase_query(index, batches):
     wall_s = time.perf_counter() - t_all
     n_queries = len(THRESHOLDS) * len(batches) * GQ
 
+    require(index.last_plan.path == "dense"
+            and index.last_plan.reason == "forced", "dense route recorded")
     topk_queries = [q for b in batches[:CHECK_BATCHES] for q in b]
     topk_ms, topk_seen = [], []
     for q in topk_queries:
         t0 = time.perf_counter()
-        topk_seen.append(index.topk(q, TOPK))
+        topk_seen.append(index.topk(q, TOPK, plan="dense"))
         topk_ms.append((time.perf_counter() - t0) * 1e3)
-    require(index.last_plan.reason == "planner not yet ported",
-            "dense route recorded")
     breakdown = query_breakdown(index, batches, THRESHOLDS[1])
 
     # Hits and rankings against the host numpy route over all records.
@@ -349,15 +368,175 @@ def phase_save(index, batches, hits_seen, topk_seen, topk_queries):
         again = api.load_index(path)
         load_s = time.perf_counter() - t0
     for (i, t), hits in hits_seen.items():
-        got = again.batch_query(batches[i], t)
+        got = again.batch_query(batches[i], t, plan="dense")
         require(all(np.array_equal(a, b) for a, b in zip(got, hits)),
                 f"reloaded hits of batch {i} at t={t}")
     for q, (ids, sc) in zip(topk_queries[:GQ], topk_seen):
-        rids, rsc = again.topk(q, TOPK)
+        rids, rsc = again.topk(q, TOPK, plan="dense")
         require(np.array_equal(ids, rids) and np.array_equal(sc, rsc),
                 "reloaded top-k")
     emit({"phase": "save", "file_bytes": size, "save_s": save_s,
           "load_s": load_s, "identical_after_reload": True})
+
+
+STAGES = ("sketch_ms", "probe_ms", "candidates_ms", "upload_ms", "b5_ms",
+          "fetch_ms", "cut_ms")
+
+
+def pruned_stages(index, b, t):
+    """Host-clock ms of each stage of one forced-pruned batch, called as
+    ``batch_query(plan="pruned")`` calls them, with a sync after the
+    device work; with the batch's hits and candidate list."""
+    post = index._postings()
+    s = index.core.sketches
+    x = s.device_pack(index.device)
+    t0 = time.perf_counter()
+    qp, hash_rows, bit_rows, sizes = index._plan_queries(b)
+    t1 = time.perf_counter()
+    choose_plan(post, hash_rows, bit_rows, t, s.num_records, s.capacity,
+                plan="pruned")
+    t2 = time.perf_counter()
+    gen = merged_candidates(post)
+    cands = [gen(qh, qb, t, int(qs))
+             for qh, qb, qs in zip(hash_rows, bit_rows, sizes)]
+    lens = [len(c.rec_ids) for c in cands]
+    cand_rec = np.concatenate([c.rec_ids for c in cands]).astype(np.int32)
+    cand_q = np.repeat(np.arange(len(b), dtype=np.int32), lens)
+    t3 = time.perf_counter()
+    q = qp.to(x.device)
+    rec_d = torch.from_numpy(cand_rec).to(x.device)
+    q_d = torch.from_numpy(cand_q).to(x.device)
+    sync()
+    t4 = time.perf_counter()
+    out = gather_score(x.values, x.thresh, x.buf, q.values, q.thresh,
+                       q.buf, q.sizes, rec_d, q_d)
+    sync()
+    t5 = time.perf_counter()
+    scores = out.cpu().numpy()
+    t6 = time.perf_counter()
+    thr32 = f32_threshold(t)
+    hits, pos = [], 0
+    for c, n in zip(cands, lens):
+        hits.append(c.rec_ids[scores[pos:pos + n] >= thr32])
+        pos += n
+    t7 = time.perf_counter()
+    ms = np.diff([t0, t1, t2, t3, t4, t5, t6, t7]) * 1e3
+    return dict(zip(STAGES, ms.tolist())), hits, cand_rec, cand_q
+
+
+def phase_pruned(index, batch: RaggedBatch, budget: int, batches):
+    """The planned route on the serving index: postings, plan="auto",
+    forced plan="pruned" against plan="dense", pruned top-k, and a
+    save/load round trip carrying the postings. Returns the candidate
+    list (cand_rec, cand_q) of the first batch at the middle threshold."""
+    arena = index.core.sketches
+    require(arena._post is None, "no postings before the planned path")
+    t0 = time.perf_counter()
+    post = index._postings()
+    lazy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager = api.build("gbkmv", batch, budget, postings="eager")
+    sync()
+    eager_s = time.perf_counter() - t0
+    require(postings_equal(eager.core.sketches._post, post),
+            "eager postings equal lazy postings")
+    del eager
+    out = {"phase": "pruned", "postings": {
+        "nbytes": post.nbytes(), "keys": len(post.keys),
+        "tail_entries": post.tail.nnz, "tail_blocks": post.tail.num_blocks,
+        "buf_entries": post.buf.nnz, "buf_blocks": post.buf.num_blocks,
+        "lazy_build_s": lazy_s, "eager_index_build_s": eager_s,
+        "lazy_equals_eager": True}}
+
+    t_mid = THRESHOLDS[1]
+    t0 = time.perf_counter()
+    got = index.batch_query(batches[0], t_mid)
+    auto_ms = (time.perf_counter() - t0) * 1e3
+    lp = index.last_plan
+    want = index.batch_query(batches[0], t_mid, plan="dense")
+    require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+            "plan='auto' hits equal the dense route's")
+    out["auto"] = {"threshold": t_mid, "path": lp.path, "hits": lp.hits,
+                   "blocks": lp.blocks, "tail_blocks": lp.tail_blocks,
+                   "tail_dense_blocks": lp.tail_dense_blocks,
+                   "est_dense": lp.est_dense, "est_pruned": lp.est_pruned,
+                   "ms": auto_ms, "equals_dense": True}
+
+    forced, pruned_hits, stage_rows = [], {}, []
+    for i in range(CHECK_BATCHES):
+        for t in THRESHOLDS:
+            t0 = time.perf_counter()
+            got = index.batch_query(batches[i], t, plan="pruned")
+            ms = (time.perf_counter() - t0) * 1e3
+            require(index.last_plan.path == "pruned", "forced pruned route")
+            cands = int(sum(index.last_candidate_sizes))
+            want = index.batch_query(batches[i], t, plan="dense")
+            require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                    f"pruned hits of batch {i} at t={t} equal dense hits")
+            pruned_hits[(i, t)] = got
+            # The same batch again, stage by stage.
+            stages, hits, rec, qq = pruned_stages(index, batches[i], t)
+            require(all(np.array_equal(a, b) for a, b in zip(hits, got))
+                    and len(rec) == cands,
+                    f"staged batch {i} at t={t} equals the route")
+            if (i, t) == (0, t_mid):
+                cand_list = (rec, qq)
+            stage_rows.append(stages)
+            forced.append({"batch": i, "threshold": t, "candidates": cands,
+                           "hits": int(sum(len(h) for h in got)), "ms": ms,
+                           "candidates_ms": stages["candidates_ms"],
+                           "b5_ms": stages["b5_ms"]})
+    out["forced"] = forced
+    out["forced_ms_p50"] = pctl([r["ms"] for r in forced], 50)
+    out["forced_equal_dense"] = len(forced)
+    med = {k: float(np.median([r[k] for r in stage_rows])) for k in STAGES}
+    total = sum(med.values())
+    out["breakdown"] = {"batches": len(stage_rows), **med,
+                        "candidates_share": med["candidates_ms"] / total,
+                        "b5_share": med["b5_ms"] / total}
+
+    topk_ms = []
+    for q in batches[0]:
+        t0 = time.perf_counter()
+        ids, sc = index.topk(q, TOPK, plan="pruned")
+        topk_ms.append((time.perf_counter() - t0) * 1e3)
+        dids, dsc = index.topk(q, TOPK, plan="dense")
+        require(np.array_equal(ids, dids)
+                and np.array_equal(sc.view(np.uint32), dsc.view(np.uint32)),
+                f"pruned top-{TOPK} equals dense top-{TOPK}")
+    out["topk"] = {"k": TOPK, "queries": len(batches[0]),
+                   "ms_p50": pctl(topk_ms, 50), "ms_p90": pctl(topk_ms, 90),
+                   "equals_dense": True}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "netflix_postings.npz")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        with np.load(path) as f:
+            post_keys = sorted(k for k in f.files if k.startswith("post_"))
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        again = api.load_index(path)
+        load_s = time.perf_counter() - t0
+    require("post_blk_payload" in post_keys and "post_buf_blk_meta" in post_keys,
+            "saved file carries the postings")
+    require(postings_equal(again.core.sketches._post, post),
+            "reloaded postings equal")
+    for t in THRESHOLDS:
+        got = again.batch_query(batches[0], t, plan="pruned")
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(got, pruned_hits[(0, t)])),
+                f"reloaded pruned hits at t={t}")
+    q = batches[0][0]
+    require(all(np.array_equal(a, b) for a, b in zip(
+        again.topk(q, TOPK, plan="pruned"), index.topk(q, TOPK, plan="pruned"))),
+        "reloaded pruned top-k")
+    out["save"] = {"file_bytes": size, "post_keys": len(post_keys),
+                   "save_s": save_s, "load_s": load_s,
+                   "identical_after_reload": True}
+    emit(out)
+    return cand_list
 
 
 def _edge_score_inputs():
@@ -384,7 +563,29 @@ def _edge_score_inputs():
     return [c.cuda() for c in cols] + [torch.from_numpy(qs).cuda()]
 
 
-def phase_parity(index, batch, tail_mask, query_batch) -> dict:
+def _edge_pair_cases():
+    """B5 edge cases: B1's edge records and queries (empty rows, k < 2,
+    threshold-0 rows, a query of size 0) with W = 1, the same with W = 3,
+    and with repeated values in a record row and a query row; every
+    (record, query) pair of each."""
+    base = _edge_score_inputs()
+    rng = np.random.default_rng(0)
+    wide = list(base)
+    for i, n in ((2, 9), (5, 3)):
+        wide[i] = to_tensor(rng.integers(0, 2**32, size=(n, 3), dtype=np.uint64)
+                            .astype(np.uint32)).cuda()
+    rep = list(base)
+    xv, qv = to_numpy(base[0]), to_numpy(base[3])
+    xv[2, :4] = [5, 9, 9, 30]
+    qv[1, :6] = [0, 5, 5, 9, 30, 31]
+    rep[0], rep[3] = to_tensor(xv).cuda(), to_tensor(qv).cuda()
+    rec = torch.arange(9, dtype=torch.int32).repeat_interleave(3).cuda()
+    q = torch.arange(3, dtype=torch.int32).repeat(9).cuda()
+    return [base, wide, rep], rec, q
+
+
+def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
+                 cand_q) -> dict:
     """Each kernel against its plain version on the same card tensors,
     exact equality; then their times at the main path's shapes."""
     results = {}
@@ -472,6 +673,43 @@ def phase_parity(index, batch, tail_mask, query_batch) -> dict:
         # about a dozen float operations in the tail.
         "ops": 2 * live + m * gq * (2 * w + 12),
     }
+    # -- B5 at a real batch's candidate list plus edge cases --------------------
+    rec = torch.from_numpy(cand_rec).cuda()
+    qq = torch.from_numpy(cand_q).cuda()
+    pargs = args + (rec, qq)
+    got = gather_score(*pargs)
+    want = ref.gather_score_ref(*pargs)
+    sync()
+    require(torch.equal(got, want),
+            "gather_score kernel equals plain version at a real candidate list")
+    require(torch.equal(got, gbkmv_score(*args)[rec.long(), qq.long()]),
+            "gather_score kernel equals the dense kernel's entries")
+    err = float((got - want).abs().max())
+    cases, erec, eq = _edge_pair_cases()
+    for e in cases:
+        require(torch.equal(gather_score(*e, erec, eq),
+                            ref.gather_score_ref(*e, erec, eq)),
+                "gather_score kernel equals plain version on edge cases")
+    p = rec.numel()
+    xr = as_u64(x.values[rec.long()])
+    tau_p = torch.minimum(as_u64(x.thresh[rec.long()]),
+                          as_u64(qp.thresh[qq.long()]))
+    nx = (xr <= tau_p[:, None]).sum(1)
+    nq = (as_u64(qp.values[qq.long()]) <= tau_p[:, None]).sum(1)
+    # Bytes per pair: the record row's sectors up to its first value above
+    # τ_pair, its threshold and buffer, the two indices and the f32 out;
+    # the query pack once.
+    reads = torch.clamp_max(nx + 1, c)
+    start = rec.long() * (4 * c)
+    sectors = int(((start + 4 * reads - 1) // 32 - start // 32 + 1).sum())
+    results["gather_score"] = {
+        "shape": [p, m, c, gq, cq, w], "max_abs_err": err, "parity": "exact",
+        "ms": cuda_ms(lambda: gather_score(*pargs), 50),
+        "plain_ms": cuda_ms(lambda: ref.gather_score_ref(*pargs), 3),
+        "row_bytes": 32 * sectors,
+        "bytes": 32 * sectors + 4 * (p * (1 + w + 3) + gq * (cq + 2 + w)),
+        "ops": 2 * int((nx + nq).sum()) + p * (2 * w + 12),
+    }
     emit({"phase": "parity", **{k: {"shape": v["shape"], "parity": "exact",
                                     "max_abs_err": v["max_abs_err"]}
                                 for k, v in results.items()},
@@ -499,26 +737,42 @@ def main() -> int:
           "mean_length": batch.total / len(recs),
           "max_length": int(batch.sizes.max()), "generate_s": gen_s})
 
-    # The main path: launch counts from 0, read right after.
-    hash_threshold.launches = 0
-    gbkmv_score.launches = 0
+    # The main paths: launch counts from 0 before each, read right after.
+    def reset():
+        for counter in COUNTERS.values():
+            counter.launches = 0
+
+    def read():
+        sync()
+        return {name: c.launches for name, c in COUNTERS.items()}
+
+    reset()
     index, tail_mask = phase_build(batch, budget)
     hits_seen, topk_seen, topk_queries = phase_query(index, batches)
     phase_save(index, batches, hits_seen, topk_seen, topk_queries)
-    sync()
-    launches = {"hash_threshold": hash_threshold.launches,
-                "gbkmv_score": gbkmv_score.launches}
-    for name, count in launches.items():
-        require(count > 0, f"{name} launched on the main path")
+    launches = {"dense": read()}
+    reset()
+    cand_rec, cand_q = phase_pruned(index, batch, budget, batches)
+    launches["pruned"] = read()
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            require(launches[path][name] > 0,
+                    f"{name} launched on the {path} path")
+    require(launches["dense"]["gather_score"] == 0,
+            "the dense path verified no candidates")
 
-    results = phase_parity(index, batch, tail_mask, batches[0])
+    results = phase_parity(index, batch, tail_mask, batches[0], cand_rec,
+                           cand_q)
     kernels = []
     for name, r in results.items():
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / ALU_OPS_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", **KERNELS[name],
-            "launches": launches[name], "parity": r["parity"],
+            "launches": sum(launches[path][name] for path in launches),
+            "launches_by_path": {path: launches[path][name]
+                                 for path in launches},
+            "parity": r["parity"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",

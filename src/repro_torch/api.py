@@ -8,19 +8,25 @@
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no card a default call raises. ``backend="torch"``
-scores with the B1 kernel on CUDA (its plain version on CPU), ``"numpy"``
-with the host estimator. ``build_backend="torch"`` runs the fused device
-build (the B2 kernel), ``"numpy"`` the host build.
+scores with the hand kernels on CUDA (B1 for the dense sweep, B5 for the
+pruned verify; their plain versions on CPU), ``"numpy"`` with the host
+estimator. ``build_backend="torch"`` runs the fused device build (the B2
+kernel), ``"numpy"`` the host build.
 
-This slice serves the dense sweep: ``plan="dense"`` and ``plan="auto"``
-both score every record (the reference's planner returns the same answers
-on either route). ``plan="pruned"``, ``insert`` and ``windowed=True``
-raise ``NotImplementedError`` until their slices of the port land.
+``query``/``batch_query``/``topk`` take ``plan`` ∈ {"auto", "dense",
+"pruned"} as the reference does: "auto" asks the planner to pick the
+cheaper route per batch from the postings' selectivity, the others force
+one. Both routes return the same answers. The pruned route is the
+reference's host filter-and-verify (candidates from the block postings on
+the host, one B5 call to score them); the device pruned pipeline arrives
+with ROADMAP.md slice 4. Postings are built on the first planned query,
+or at build time with ``postings="eager"``. ``explain=``, ``insert`` and
+``windowed=True`` raise ``NotImplementedError`` until their slices land.
 
 Index files use the reference's npz keys, so a file saved by either
-package loads in the other. A port file carries no ``post_*`` (postings)
-keys, which makes it a valid v1-style reference file; on load the port
-ignores ``post_*`` keys.
+package loads in the other, postings included: a save writes the blocked
+``post_*`` keys when the postings exist, and a load reads them (version 3
+blocked stores, or version 2 flat CSR re-encoded into blocks).
 """
 
 from __future__ import annotations
@@ -29,14 +35,16 @@ import zipfile
 
 import numpy as np
 
+from repro_torch import planner
 from repro_torch.core import gbkmv as gbkmv_mod
 from repro_torch.core.arena import SketchArena
 from repro_torch.core.estimators import containment_matrix, normalize_backend
 from repro_torch.core.hashing import to_numpy
 from repro_torch.core.sketches import PackedSketches
 from repro_torch.device import resolve_device
-from repro_torch.planner import (QueryPlan, normalize_plan, threshold_hits_packed,
-                                 topk_select)
+from repro_torch.kernels.gather_score import score_pairs
+from repro_torch.planner import (BlockStore, PostingsIndex, QueryPlan,
+                                 from_flat, threshold_hits_packed, topk_select)
 
 # ---------------------------------------------------------------------------
 # Engine registry
@@ -131,10 +139,14 @@ _BACKEND_TO_FILE = {"torch": "jnp", "numpy": "numpy"}
 _BACKEND_FROM_FILE = {"jnp": "torch", "pallas": "torch", "numpy": "numpy"}
 
 
-def _arena_to_npz(s: PackedSketches) -> dict:
+# Per-store npz key suffixes of the blocked postings (version 3).
+_STORE_FIELDS = ("row_blocks", "first", "last", "meta", "off", "payload")
+
+
+def _arena_to_npz(s: SketchArena) -> dict:
     """The packed columns under the reference's npz keys (u32 columns as
-    uint32). No postings keys: postings arrive with slice 3."""
-    return {
+    uint32), plus the blocked postings when they have been built."""
+    d = {
         "values": to_numpy(s.values),
         "lengths": s.lengths.cpu().numpy(),
         "thresh": to_numpy(s.thresh),
@@ -142,15 +154,49 @@ def _arena_to_npz(s: PackedSketches) -> dict:
         "sizes": s.sizes.cpu().numpy(),
         "arena_version": np.int64(_ARENA_VERSION),
     }
+    post = s._post
+    if post is not None:
+        d["post_keys"] = post.keys
+        d["post_tau"] = np.uint32(post.tau)
+        for prefix, store in (("post_blk_", post.tail),
+                              ("post_buf_blk_", post.buf)):
+            for f in _STORE_FIELDS:
+                d[prefix + f] = getattr(store, f)
+    return d
 
 
 def _arena_from_npz(d: dict) -> SketchArena:
-    """An arena (CPU tensors) from the column keys of any reference file
-    version; ``post_*`` postings keys are ignored."""
-    return SketchArena.from_pack(PackedSketches.from_numpy(
+    """An arena (CPU tensors) from any reference file version:
+
+    v3  ``post_blk_*`` / ``post_buf_blk_*`` blocked stores, installed as
+        they are
+    v2  flat-CSR ``post_offsets``/``post_rec_ids``/..., encoded into
+        blocks on load
+    v1  no ``post_*`` keys: postings stay lazy
+    """
+    arena = SketchArena.from_pack(PackedSketches.from_numpy(
         values=np.asarray(d["values"], np.uint32),
         lengths=d["lengths"], thresh=np.asarray(d["thresh"], np.uint32),
         buf=np.asarray(d["buf"], np.uint32), sizes=d["sizes"]))
+    if "post_blk_row_blocks" in d:
+        tail, buf = (BlockStore(**{f: d[prefix + f] for f in _STORE_FIELDS})
+                     for prefix in ("post_blk_", "post_buf_blk_"))
+        arena.install_postings(PostingsIndex(
+            keys=d["post_keys"], tail=tail, buf=buf,
+            num_records=arena.num_records, tau=np.uint32(d["post_tau"])))
+    elif "post_keys" in d:
+        arena.install_postings(from_flat(
+            d["post_keys"], d["post_offsets"], d["post_rec_ids"],
+            d["post_buf_offsets"], d["post_buf_rec_ids"],
+            arena.num_records, np.uint32(d["post_tau"])))
+    return arena
+
+
+def _validate_postings_arg(postings: str) -> None:
+    """Reject a bad ``postings=`` before the build runs."""
+    if postings not in ("lazy", "eager"):
+        raise ValueError(f"postings must be 'lazy' or 'eager', "
+                         f"got {postings!r}")
 
 
 def index_from_arrays(d: dict, device="cuda") -> "GBKMVApiIndex":
@@ -187,19 +233,27 @@ class GBKMVEngine:
     @classmethod
     def build(cls, records, budget, r="auto", seed=0, capacity=None,
               backend="torch", tau_mode="exact", build_backend="torch",
-              windowed=False, device="cuda"):
+              postings="lazy", windowed=False, device="cuda"):
         """Vectorized construction. ``backend`` picks the scoring
         implementation, ``build_backend`` the construction path;
-        ``tau_mode`` ∈ {"exact", "histogram"}."""
+        ``tau_mode`` ∈ {"exact", "histogram"}; ``postings="eager"``
+        encodes the block postings before returning, so the first pruned
+        query pays no inversion."""
         if windowed:
             raise _not_ported("windowed=True (the time-windowed index)",
                               "slice 5")
+        _validate_postings_arg(postings)
         device = resolve_device(device)
         core = gbkmv_mod.build_gbkmv(
             records, budget=budget, r=r, seed=seed, capacity=capacity,
             tau_mode=tau_mode, build_backend=build_backend, device=device)
-        return GBKMVApiIndex(core, budget=int(budget), backend=backend,
-                             device=device)
+        idx = GBKMVApiIndex(core, budget=int(budget), backend=backend,
+                            device=device)
+        if postings == "eager":
+            # From the host columns; device-built columns are pinned to the
+            # host once and stay resident on the card.
+            idx.core.sketches.postings()
+        return idx
 
     @classmethod
     def _load(cls, d: dict, device) -> "GBKMVApiIndex":
@@ -215,10 +269,17 @@ class GBKMVEngine:
 
 
 class GBKMVApiIndex:
-    """A built GB-KMV index behind the reference's query protocol."""
+    """A built GB-KMV index behind the reference's planned query protocol.
+
+    ``query``/``batch_query``/``topk`` take ``plan`` ∈ {"auto", "dense",
+    "pruned"}. The postings live on the arena, built on the first planned
+    query. The pruned route is the host filter-and-verify: candidates from
+    the postings, scored in one ``score_pairs`` call (B5 on the card).
+    """
 
     engine = "gbkmv"
-    last_plan: QueryPlan | None = None
+    last_plan: QueryPlan | None = None     # the latest planned batch's route
+    last_candidate_sizes: list | None = None   # per query, pruned route
 
     def __init__(self, core: gbkmv_mod.GBKMVIndex, budget: int | None,
                  backend: str = "torch", device="cuda"):
@@ -232,22 +293,48 @@ class GBKMVApiIndex:
     def num_records(self) -> int:
         return self.core.num_records
 
-    def _score_matrix(self, queries, *, as_numpy: bool):
+    def _scoring_pack(self) -> PackedSketches:
+        """The columns the backend scores: resident on the index's device
+        for ``"torch"``, the arena itself for ``"numpy"``."""
+        x = self.core.sketches
+        return x.device_pack(self.device) if self.backend == "torch" else x
+
+    def _score_matrix(self, queries, *, as_numpy: bool, qp=None):
         """f32[m, Gq] for a query batch: a tensor on the index's device
         for the torch backend (unless ``as_numpy``), numpy otherwise."""
-        qp = gbkmv_mod.sketch_query_batch(self.core, queries)
-        x = self.core.sketches
-        if self.backend == "torch":
-            x = x.device_pack(self.device)
-        return containment_matrix(qp, x, backend=self.backend,
-                                  as_numpy=as_numpy)
+        if qp is None:
+            qp = gbkmv_mod.sketch_query_batch(self.core, queries)
+        return containment_matrix(qp, self._scoring_pack(),
+                                  backend=self.backend, as_numpy=as_numpy)
 
-    def _dense_plan(self, plan: str) -> None:
-        if normalize_plan(plan) == "pruned":
-            raise _not_ported("plan='pruned' (postings and the planner)",
-                              "slices 3-4")
-        self.last_plan = QueryPlan("dense", np.nan, np.nan, 0,
-                                   "planner not yet ported")
+    # -- planner hooks --------------------------------------------------------
+
+    def _postings(self) -> PostingsIndex:
+        return self.core.sketches.postings()
+
+    def _plan_queries(self, queries):
+        """(query pack, retained-hash rows, buffer-bit rows, sizes)."""
+        qp = gbkmv_mod.sketch_query_batch(self.core, queries)
+        return (qp,) + planner.unpack_query_rows(qp)
+
+    def _pair_score_fn(self, qp):
+        """The ragged verify scorer over this index and query pack."""
+        x = self._scoring_pack()
+        qp = qp.to(x.device)       # placed once, not per scored chunk
+        return lambda cand_rec, cand_q: score_pairs(
+            x, qp, cand_rec, cand_q, backend=self.backend)
+
+    def _dense_batch_query(self, queries, threshold, qp=None):
+        """The comparison runs where the scores are; only the mask is
+        fetched."""
+        s = self._score_matrix(queries, as_numpy=False, qp=qp)
+        return threshold_hits_packed(s, threshold)
+
+    def _dense_topk(self, q_ids, k: int, qp=None):
+        s = self._score_matrix([q_ids], as_numpy=True, qp=qp)[:, 0]
+        return topk_select(np.arange(len(s), dtype=np.int64), s, k, len(s))
+
+    # -- queries ------------------------------------------------------------
 
     def scores(self, q_ids) -> np.ndarray:
         """Estimated containment Ĉ(Q→X) for every record (f32[m])."""
@@ -257,27 +344,66 @@ class GBKMVApiIndex:
         """f32[m, Gq] — one index sweep for a whole query batch."""
         return self._score_matrix(queries, as_numpy=True)
 
-    def query(self, q_ids, threshold: float, *, plan: str = "auto"):
-        return self.batch_query([q_ids], threshold, plan=plan)[0]
+    def query(self, q_ids, threshold: float, *, plan: str = "auto",
+              explain: bool = False):
+        return self.batch_query([q_ids], threshold, plan=plan,
+                                explain=explain)[0]
 
-    def batch_query(self, queries, threshold: float, *,
-                    plan: str = "auto") -> list[np.ndarray]:
-        """Record ids with Ĉ ≥ threshold, one sorted array per query. The
-        comparison runs where the scores are; only the mask is fetched."""
-        self._dense_plan(plan)
+    def batch_query(self, queries, threshold: float, *, plan: str = "auto",
+                    explain: bool = False) -> list[np.ndarray]:
+        """Record ids with Ĉ ≥ threshold, one sorted array per query, by
+        the route ``plan`` names or the planner picks."""
+        if explain:
+            raise _not_ported("explain=True (per-query explain dicts)",
+                              "slice 7")
+        plan = planner.normalize_plan(plan)
         queries = [np.asarray(q) for q in queries]
         if not queries:
             return []
-        s = self._score_matrix(queries, as_numpy=False)
-        return threshold_hits_packed(s, threshold)
+        if plan == "dense" or float(threshold) <= 0.0:
+            self.last_plan = QueryPlan(
+                "dense", np.nan, np.nan, 0,
+                "forced" if plan == "dense" else "threshold <= 0")
+            return self._dense_batch_query(queries, threshold)
+        qp, hash_rows, bit_rows, sizes = self._plan_queries(queries)
+        s = self.core.sketches
+        decision = planner.choose_plan(
+            self._postings(), hash_rows, bit_rows, threshold,
+            s.num_records, s.capacity, plan=plan)
+        self.last_plan = decision
+        if decision.path == "dense":
+            return self._dense_batch_query(queries, threshold, qp=qp)
+        ids, cands = planner.pruned_batch(
+            self._postings(), hash_rows, bit_rows, sizes, threshold,
+            self._pair_score_fn(qp))
+        self.last_candidate_sizes = [len(c.rec_ids) for c in cands]
+        return ids
 
     def topk(self, q_ids, k: int, *,
              plan: str = "auto") -> tuple[np.ndarray, np.ndarray]:
         """(record ids, scores) of the k highest estimated containments:
-        score descending, ties by ascending record id."""
-        self._dense_plan(plan)
-        s = self.scores(q_ids)
-        return topk_select(np.arange(len(s), dtype=np.int64), s, k, len(s))
+        score descending, ties by ascending record id. The pruned route
+        scores candidates in bound order with the running k-th score as
+        the moving threshold, and ranks exactly as the dense sweep."""
+        plan = planner.normalize_plan(plan)
+        s = self.core.sketches
+        if plan == "dense" or int(k) <= 0 or s.num_records == 0:
+            return self._dense_topk(q_ids, k)
+        qp, hash_rows, bit_rows, sizes = self._plan_queries(
+            [np.asarray(q_ids)])
+        if plan == "auto":
+            decision = planner.choose_plan(
+                self._postings(), hash_rows, bit_rows, 1.0,
+                s.num_records, s.capacity)
+            self.last_plan = decision
+            if decision.path == "dense":
+                return self._dense_topk(q_ids, k, qp=qp)
+        else:
+            self.last_plan = QueryPlan("pruned", np.nan, np.nan, 0,
+                                       "forced topk")
+        return planner.pruned_topk(
+            self._postings(), hash_rows[0], bit_rows[0], int(sizes[0]), k,
+            self._pair_score_fn(qp), s.num_records)
 
     def insert(self, new_records, budget: int | None = None):
         raise _not_ported("insert (dynamic maintenance)", "slice 5")

@@ -1,13 +1,10 @@
 // Dense GB-KMV containment scores of a query batch against every record.
 //
 // Replaces the Pallas kernel `_score_kernel` of
-// src/repro/kernels/gbkmv_score.py (B1). For each (record X, query Q):
-//   τ = min(thr_X, thr_Q); n_x, n_q = #values ≤ τ;
-//   K∩ = #live X values present in Q; k = n_x + n_q − K∩;
-//   U = largest live value of either row;
-//   D̂∩ = (K∩ / max(k,1)) · ((k−1) / max((U+1)/2^32, 1e-30))   (Eq. 25)
-//        when k ≥ 2 and K∩ ≥ 1, else K∩ (or 0);
-//   o1 = popcount(buf_X & buf_Q);   score = (o1 + D̂∩) / max(|Q|, 1).
+// src/repro/kernels/gbkmv_score.py (B1). The per-pair math (τ_pair, live
+// counts, K∩, the Eq. 25 tail, the buffer popcount) is
+// repro::gbkmv_pair_score in gbkmv_pair.cuh, shared with the candidate
+// verify kernel (B5).
 //
 // Bound on the H100: memory. Each record row is read up to its first value
 // above τ (not its padded width), its threshold and buffer once, and the
@@ -16,20 +13,16 @@
 //
 // Design: the TPU kernel broadcasts equality over 128-lane query chunks,
 // the natural form of a vector unit. Here each thread takes one pair and
-// walks the two sorted rows: n_x and n_q are the live prefixes, K∩ is a
-// two-pointer merge of them (rows are sorted ascending, so the count equals
-// the reference's equality count), U is the larger last live value, o1 is
-// `__popc` over the buffer words. The query pack (values, thresholds,
-// buffers, sizes) is staged in shared memory once per block; threads of a
-// warp walk consecutive queries of the same record, so the record row is
-// read by a broadcast and the output row is written coalesced.
-//
-// The float tail repeats the reference's operation order with explicit
-// round-to-nearest intrinsics (and the file is built with -fmad=false):
-// a score is compared with `score >= t`, so one ulp flips an answer.
+// walks the two sorted rows (gbkmv_pair.cuh). The query pack (values,
+// thresholds, buffers, sizes) is staged in shared memory once per block;
+// threads of a warp walk consecutive queries of the same record, so the
+// record row is read by a broadcast and the output row is written
+// coalesced.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "gbkmv_pair.cuh"
 
 namespace {
 
@@ -58,50 +51,9 @@ __global__ void gbkmv_score_kernel(
        p += stride) {
     const int64_t r = p / gq;
     const int g = (int)(p - r * gq);
-    const uint32_t* x = xv + r * c;
-    const uint32_t* q = s_qv + g * cq;
-    const uint32_t tau = min(xt[r], s_qt[g]);
-
-    int nx = 0;
-    while (nx < c && x[nx] <= tau) ++nx;
-    int nq = 0;
-    while (nq < cq && q[nq] <= tau) ++nq;
-
-    // K∩: each live x value that occurs in the live query prefix. The
-    // query pointer does not advance on a match, so equal values count
-    // exactly as the reference's equality broadcast counts them.
-    int kcap = 0;
-    int j = 0;
-    for (int i = 0; i < nx; ++i) {
-      const uint32_t v = x[i];
-      while (j < nq && q[j] < v) ++j;
-      if (j == nq) break;
-      if (q[j] == v) ++kcap;
-    }
-    const int k = nx + nq - kcap;
-    const uint32_t ux = nx > 0 ? x[nx - 1] : 0u;
-    const uint32_t uq = nq > 0 ? q[nq - 1] : 0u;
-    const uint32_t u = ux > uq ? ux : uq;
-
-    const float u_unit =
-        __fdiv_rn(__fadd_rn(__uint2float_rn(u), 1.0f), 4294967296.0f);
-    const float kf = __int2float_rn(k);
-    const float cf = __int2float_rn(kcap);
-    float d;
-    if (k >= 2 && kcap >= 1) {
-      d = __fmul_rn(__fdiv_rn(cf, fmaxf(kf, 1.0f)),
-                    __fdiv_rn(__fsub_rn(kf, 1.0f), fmaxf(u_unit, 1e-30f)));
-    } else {
-      d = kcap >= 1 ? cf : 0.0f;
-    }
-
-    int o1 = 0;
-    const uint32_t* xbr = xb + r * w;
-    const uint32_t* qbr = s_qb + g * w;
-    for (int t = 0; t < w; ++t) o1 += __popc(xbr[t] & qbr[t]);
-
-    const float qsf = fmaxf(__int2float_rn(s_qs[g]), 1.0f);
-    out[p] = __fdiv_rn(__fadd_rn(__int2float_rn(o1), d), qsf);
+    out[p] = repro::gbkmv_pair_score(xv + r * c, c, xt[r], xb + r * w,
+                                     s_qv + g * cq, cq, s_qt[g],
+                                     s_qb + g * w, w, s_qs[g]);
   }
 }
 

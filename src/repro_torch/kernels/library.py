@@ -4,9 +4,9 @@ with a plain C interface, loaded with ctypes.
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
 started together, then linked into ``librepro_torch_kernels.so`` under
 ``build/repro_torch_kernels/<key>/`` at the repository root, where
-``<key>`` hashes the sources and the flags: an edited source builds anew,
-an unchanged one loads what is there. Nothing is built at import; the
-first kernel launch builds.
+``<key>`` hashes the sources, the shared headers and the flags: an edited
+file builds anew, an unchanged one loads what is there. Nothing is built
+at import; the first kernel launch builds.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("hash_threshold.cu", "gbkmv_score.cu")
+SOURCES = ("hash_threshold.cu", "gbkmv_score.cu", "gather_score.cu")
+HEADERS = ("gbkmv_pair.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "hash_threshold_launch": ([_P, _P, _P, _I64, _U32, _U32, _P], _I32),
     "gbkmv_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                             _I32, _I32, _P, _P], _I32),
+    "gather_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
+                             _I32, _I32, _P, _P, _I64, _P, _P], _I32),
     "repro_cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 
@@ -55,7 +58,7 @@ def _nvcc() -> str:
 
 def build_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

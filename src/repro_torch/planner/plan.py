@@ -1,12 +1,36 @@
-"""Query routing record and the shared top-k head (port of the dense-path
-half of ``repro.planner.plan``). The cost-model planner and the pruned
-routes arrive with their slices of the port."""
+"""Per-batch query planning: dense sweep or postings-pruned verify (port
+of ``repro.planner.plan``, host numpy).
+
+``choose_plan`` probes the postings (searchsorted and header arithmetic,
+no merge) for the batch's query hashes and bits, feeds the touched-entry
+count to the cost model (``core/cost_model.py``) and picks the cheaper
+path. ``plan="dense"``/``"pruned"`` force a path; ``"auto"`` is the
+default. Thresholds ≤ 0 always run dense: every record clears such a t,
+and a filter built on "shares a hash or bit" would drop records the dense
+sweep returns.
+
+``pruned_batch`` generates candidates per query, scores the ragged union
+in one call (the index passes a closure over
+:func:`repro_torch.kernels.gather_score.score_pairs`) and cuts at the
+float32-exact threshold, so its hits equal the dense sweep's bit for bit.
+
+``pruned_topk`` scores candidates in bound-descending chunks and stops
+once the running k-th score exceeds every remaining bound. Records that
+are not candidates score exactly 0, so the ranking equals the dense one
+under the (score desc, record id asc) order.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Sequence
 
 import numpy as np
+
+from repro_torch.core import cost_model
+from repro_torch.core.hashing import to_numpy
+from repro_torch.planner import prune
+from repro_torch.planner.postings import PostingsIndex
 
 PLAN_MODES = ("auto", "dense", "pruned")
 
@@ -20,6 +44,10 @@ class QueryPlan:
     est_pruned: float
     hits: int              # posting entries the batch's hashes/bits touch
     reason: str
+    per_query_hits: np.ndarray | None = None   # int64[Gq] probe breakdown
+    blocks: int = 0               # posting blocks touched (tail + buffer)
+    tail_blocks: int = 0          # tail blocks touched
+    tail_dense_blocks: int = 0    # of which dense-bitmap blocks
 
 
 def normalize_plan(plan: str | None) -> str:
@@ -27,6 +55,180 @@ def normalize_plan(plan: str | None) -> str:
     if plan not in PLAN_MODES:
         raise ValueError(f"plan must be one of {PLAN_MODES}, got {plan!r}")
     return plan
+
+
+def unpack_query_rows(qp):
+    """Per-query planner inputs from a query pack: (retained-hash rows
+    uint32, buffer-bit rows int64, query sizes int32)."""
+    vals, lens = to_numpy(qp.values), qp.lengths.cpu().numpy()
+    bufs = to_numpy(qp.buf)
+    hash_rows = [vals[g, : lens[g]] for g in range(qp.num_records)]
+    bit_rows = [prune.query_bits(bufs[g]) for g in range(qp.num_records)]
+    return hash_rows, bit_rows, qp.sizes.cpu().numpy()
+
+
+def _probe(
+    posts: PostingsIndex | Sequence[PostingsIndex],
+    q_hash_rows: Sequence[np.ndarray],
+    q_bit_rows: Sequence[np.ndarray],
+) -> tuple[np.ndarray, int, int, int]:
+    """One key-probe pass over the batch: (per-query posting entries,
+    tail_blocks, tail_dense_blocks, buf_blocks). Header arithmetic only;
+    nothing decodes. ``posts`` may be a list (one per shard); the counts
+    sum over it."""
+    if isinstance(posts, PostingsIndex):
+        posts = [posts]
+    gq = len(q_hash_rows)
+    per = np.zeros(gq, dtype=np.int64)
+    tb = td = bb = 0
+    if gq:
+        allh = np.concatenate(
+            [np.asarray(q, np.uint32).ravel() for q in q_hash_rows])
+        hidx = np.repeat(np.arange(gq, dtype=np.int64),
+                         [len(np.asarray(q).ravel()) for q in q_hash_rows])
+        allb = np.concatenate(
+            [np.asarray(q, np.int64).ravel() for q in q_bit_rows])
+        bidx = np.repeat(np.arange(gq, dtype=np.int64),
+                         [len(np.asarray(q).ravel()) for q in q_bit_rows])
+    else:
+        allh = np.zeros(0, np.uint32)
+        hidx = allb = bidx = np.zeros(0, np.int64)
+    for post in posts:
+        keys = post.keys
+        row_lens = post.tail_row_lengths()
+        buf_lens = post.buf_row_lengths()
+        rbt = post.tail.row_blocks.astype(np.int64)
+        dcum = np.concatenate(
+            [[0], np.cumsum((post.tail.meta >> np.uint32(13))
+                            & np.uint32(1))]).astype(np.int64)
+        rbb = post.buf.row_blocks.astype(np.int64)
+        pos = np.searchsorted(keys, allh)
+        ok = pos < len(keys)
+        hit = np.zeros(len(allh), dtype=bool)
+        hit[ok] = keys[pos[ok]] == allh[ok]
+        r = pos[hit]
+        # Per-query sums with np.add.at: int64-exact.
+        np.add.at(per, hidx[hit], row_lens[r].astype(np.int64))
+        tb += int((rbt[r + 1] - rbt[r]).sum())
+        td += int((dcum[rbt[r + 1]] - dcum[rbt[r]]).sum())
+        live = allb < post.buf.num_rows
+        qb = allb[live]
+        np.add.at(per, bidx[live], buf_lens[qb].astype(np.int64))
+        bb += int((rbb[qb + 1] - rbb[qb]).sum())
+    return per, tb, td, bb
+
+
+def probe_hits_per_query(posts, q_hash_rows, q_bit_rows) -> np.ndarray:
+    """int64[Gq] posting entries a merge would touch per query."""
+    return _probe(posts, q_hash_rows, q_bit_rows)[0]
+
+
+def probe_hits(posts, q_hash_rows, q_bit_rows) -> int:
+    """Total posting entries a merge would touch for the batch."""
+    return int(probe_hits_per_query(posts, q_hash_rows, q_bit_rows).sum())
+
+
+def probe_block_stats(posts, q_hash_rows, q_bit_rows) -> tuple[int, int, int]:
+    """(tail_blocks, tail_dense_blocks, buf_blocks) the batch touches."""
+    return _probe(posts, q_hash_rows, q_bit_rows)[1:]
+
+
+def choose_plan(
+    posts: PostingsIndex | Sequence[PostingsIndex],
+    q_hash_rows: Sequence[np.ndarray],
+    q_bit_rows: Sequence[np.ndarray],
+    threshold: float,
+    m: int,
+    capacity: int,
+    plan: str = "auto",
+) -> QueryPlan:
+    gq = len(q_hash_rows)
+    plan = normalize_plan(plan)
+    if float(threshold) <= 0.0:
+        # Every record passes t ≤ 0; postings can't see zero-overlap pairs.
+        return QueryPlan("dense", 0.0, np.inf, 0,
+                         "threshold <= 0: pruning unsound, forced dense")
+    per, tb, td, bb = _probe(posts, q_hash_rows, q_bit_rows)
+    hits = int(per.sum())
+    est_dense = cost_model.dense_sweep_cost(m, capacity, gq)
+    est_pruned = cost_model.pruned_path_cost(hits, capacity, gq,
+                                             blocks=tb + bb)
+    blk = dict(blocks=tb + bb, tail_blocks=tb, tail_dense_blocks=td)
+    if plan != "auto":
+        return QueryPlan(plan, est_dense, est_pruned, hits, "forced",
+                         per, **blk)
+    path = "pruned" if est_pruned < est_dense else "dense"
+    return QueryPlan(path, est_dense, est_pruned, hits,
+                     f"auto: dense≈{est_dense:.3g} vs pruned≈{est_pruned:.3g}",
+                     per, **blk)
+
+
+def merged_candidates(
+    posts: PostingsIndex | Sequence[PostingsIndex],
+    row_offsets: Sequence[int] | None = None,
+) -> Callable[..., prune.CandidateSet]:
+    """Candidate generator over one postings index or a sharded list;
+    ``row_offsets[s]`` maps shard-local record ids to global ids (shard
+    ranges partition the records, so the union is a concatenation that
+    stays sorted)."""
+    if isinstance(posts, PostingsIndex):
+        posts = [posts]
+    if row_offsets is None:
+        row_offsets = [0] * len(posts)
+
+    def gen(qh, qb, t, qs) -> prune.CandidateSet:
+        parts = [prune.candidates_for(p, qh, qb, t, qs) for p in posts]
+        return prune.CandidateSet(
+            rec_ids=np.concatenate(
+                [c.rec_ids + off for c, off in zip(parts, row_offsets)]),
+            counts=np.concatenate([c.counts for c in parts]),
+            o1=np.concatenate([c.o1 for c in parts]),
+            hits=sum(c.hits for c in parts),
+            pruned=sum(c.pruned for c in parts),
+            blocks=sum(c.blocks for c in parts),
+            skipped_blocks=sum(c.skipped_blocks for c in parts),
+        )
+
+    return gen
+
+
+def pruned_batch(
+    posts: PostingsIndex | Sequence[PostingsIndex],
+    q_hash_rows: Sequence[np.ndarray],
+    q_bit_rows: Sequence[np.ndarray],
+    q_sizes: Sequence[int],
+    thresholds,
+    score_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
+    row_offsets: Sequence[int] | None = None,
+) -> tuple[list[np.ndarray], list[prune.CandidateSet]]:
+    """Filter-and-verify for one query batch.
+
+    ``score_fn(cand_rec i32[P], cand_q i32[P]) -> f32[P]`` scores the
+    flattened ragged candidate list in one call. Returns (per-query hit
+    ids, per-query candidate sets); the ids equal the dense sweep's
+    ``np.nonzero(scores >= t)`` for each query.
+    """
+    gq = len(q_hash_rows)
+    thr = np.broadcast_to(np.asarray(thresholds, np.float64), (gq,))
+    gen = merged_candidates(posts, row_offsets)
+    cands = [gen(qh, qb, float(t), int(qs))
+             for qh, qb, t, qs in zip(q_hash_rows, q_bit_rows, thr, q_sizes)]
+    lens = [len(c.rec_ids) for c in cands]
+    if sum(lens) == 0:
+        return [np.zeros(0, dtype=np.int64) for _ in range(gq)], cands
+
+    cand_rec = np.concatenate([c.rec_ids for c in cands]).astype(np.int32)
+    cand_q = np.repeat(np.arange(gq, dtype=np.int32), lens)
+    scores = np.asarray(score_fn(cand_rec, cand_q), dtype=np.float32)
+
+    out = []
+    pos = 0
+    thr32 = prune.f32_threshold(thr)
+    for g, c in enumerate(cands):
+        s = scores[pos : pos + lens[g]]
+        pos += lens[g]
+        out.append(c.rec_ids[s >= thr32[g]].astype(np.int64))
+    return out, cands
 
 
 def topk_select(rec_ids, scores, k: int,
@@ -49,3 +251,64 @@ def topk_select(rec_ids, scores, k: int,
         ids = np.concatenate([ids, fill])
         s = np.concatenate([s, np.zeros(len(fill), np.float32)])
     return ids.astype(np.int64), s.astype(np.float32)
+
+
+def pruned_topk(
+    posts: PostingsIndex | Sequence[PostingsIndex],
+    q_hashes: np.ndarray,
+    q_bits: np.ndarray,
+    q_size: int,
+    k: int,
+    score_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
+    num_records: int,
+    row_offsets: Sequence[int] | None = None,
+    chunk: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Top-k via postings-driven upper-bound pruning.
+
+    Candidates come from the postings at threshold 0, each with the
+    containment bound of the threshold filter, and are scored in
+    bound-descending chunks. Once k scores are in hand and every
+    remaining (slack-inflated) bound sits strictly below the running k-th
+    score, nothing left can enter or tie into the top-k and scoring stops.
+    """
+    k = min(int(k), int(num_records))
+    if k <= 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.float32)
+    gen = merged_candidates(posts, row_offsets)
+    cand = gen(np.asarray(q_hashes, np.uint32), np.asarray(q_bits, np.int64),
+               0.0, int(q_size))
+    n = len(cand.rec_ids)
+
+    scored_ids: list[np.ndarray] = []
+    scored_s: list[np.ndarray] = []
+    if n:
+        bound = prune.tail_bound(np.sort(np.asarray(q_hashes, np.uint32)))
+        ub = (cand.o1.astype(np.float64)
+              + bound[np.minimum(cand.counts, len(bound) - 1)]) \
+            / max(int(q_size), 1) * prune._BOUND_SLACK
+        order = np.argsort(-ub, kind="stable")
+        chunk = int(chunk) if chunk else max(4 * k, 64)
+        kth = -np.inf
+        done = 0
+        pos = 0
+        while pos < n:
+            sel = order[pos : pos + chunk]
+            if done >= k and ub[sel[0]] < kth:
+                break               # bounds descend: nothing left can enter
+            s = np.asarray(score_fn(cand.rec_ids[sel].astype(np.int32),
+                                    np.zeros(len(sel), np.int32)),
+                           dtype=np.float32)
+            scored_ids.append(cand.rec_ids[sel])
+            scored_s.append(s)
+            done += len(sel)
+            pos += len(sel)
+            if done >= k:
+                alls = np.concatenate(scored_s)
+                kth = float(np.partition(alls, len(alls) - k)[len(alls) - k])
+
+    ids = np.concatenate(scored_ids) if scored_ids else np.zeros(0, np.int64)
+    s = np.concatenate(scored_s) if scored_s else np.zeros(0, np.float32)
+    # Zero-scored candidates join the non-candidates' tie pool; the shared
+    # head applies the (score desc, id asc, zero-fill) contract.
+    return topk_select(ids, s, k, num_records)

@@ -1,6 +1,6 @@
-"""The port's slice end to end against ``repro.api``: build, batch_query,
-topk, and save/load across the two packages. Hit lists and top-k orders
-must be equal and scores bitwise equal."""
+"""The port's slices end to end against ``repro.api``: build, batch_query
+and topk on every plan, and save/load across the two packages. Hit lists
+and top-k orders must be equal and scores bitwise equal."""
 
 import numpy as np
 import pytest
@@ -32,7 +32,7 @@ def ref_index(data):
 def _assert_same_answers(port, ref, queries):
     for t in THRESHOLDS:
         want = ref.batch_query(queries, t, plan="dense")
-        for plan in ("dense", "auto"):
+        for plan in ("dense", "auto", "pruned"):
             got = port.batch_query(queries, t, plan=plan)
             assert len(got) == len(want)
             for a, b in zip(got, want):
@@ -41,11 +41,12 @@ def _assert_same_answers(port, ref, queries):
     np.testing.assert_array_equal(s_got.view(np.uint32), s_want.view(np.uint32))
     for q in queries:
         for k in (1, 5, 200):
-            ids, sc = port.topk(q, k)
             rids, rsc = ref.topk(q, k, plan="dense")
-            np.testing.assert_array_equal(ids, rids)
-            np.testing.assert_array_equal(sc.view(np.uint32),
-                                          rsc.view(np.uint32))
+            for plan in ("auto", "pruned"):
+                ids, sc = port.topk(q, k, plan=plan)
+                np.testing.assert_array_equal(ids, rids)
+                np.testing.assert_array_equal(sc.view(np.uint32),
+                                              rsc.view(np.uint32))
 
 
 @pytest.mark.parametrize("build_backend", ["torch", "numpy"])
@@ -56,8 +57,14 @@ def test_built_index_answers_like_reference(data, ref_index, build_backend,
     port = api.build("gbkmv", recs, budget, backend=backend,
                      build_backend=build_backend, device="cpu")
     _assert_same_answers(port, ref_index, queries)
-    assert port.last_plan.path == "dense"
-    assert port.last_plan.reason == "planner not yet ported"
+    for t in (0.0, 0.5):
+        port.batch_query(queries, t)
+        ref_index.batch_query(queries, t)
+        got, want = port.last_plan, ref_index.last_plan
+        assert (got.path, got.hits, got.blocks, got.reason) == \
+            (want.path, want.hits, want.blocks, want.reason)
+    port.batch_query(queries, 0.5, plan="dense")
+    assert port.last_plan.path == "dense" and port.last_plan.reason == "forced"
     assert port.nbytes() == port.core.sketches.nbytes() > 0
 
 
@@ -134,16 +141,23 @@ def test_default_device_raises_without_cuda(data, tmp_path, monkeypatch):
 def test_unported_routes_raise(data):
     recs, budget, queries = data
     port = api.build("gbkmv", recs, budget, device="cpu")
+    # The pruned route is ported: it answers as the dense sweep does.
+    for a, b in zip(port.batch_query(queries, 0.5, plan="pruned"),
+                    port.batch_query(queries, 0.5, plan="dense")):
+        np.testing.assert_array_equal(a, b)
+    for x, y in zip(port.topk(queries[0], 3, plan="pruned"),
+                    port.topk(queries[0], 3, plan="dense")):
+        np.testing.assert_array_equal(x, y)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.batch_query(queries, 0.5, plan="pruned")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.topk(queries[0], 3, plan="pruned")
+        port.query(queries[0], 0.5, explain=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.insert(recs[:2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.build("gbkmv", recs, budget, windowed=True, device="cpu")
     with pytest.raises(ValueError):
         port.batch_query(queries, 0.5, plan="cheapest")
+    with pytest.raises(ValueError, match="postings"):
+        api.build("gbkmv", recs, budget, postings="always", device="cpu")
     with pytest.raises(ValueError):
         api.get_engine("gkmv")
     assert port.batch_query([], 0.5) == []

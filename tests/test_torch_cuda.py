@@ -16,6 +16,7 @@ from repro_torch import api
 from repro_torch.core import gbkmv
 from repro_torch.core.hashing import PAD, as_u64, to_numpy, to_tensor
 from repro_torch.data.synth import generate_dataset, make_query_workload
+from repro_torch.kernels import gather_score as gs_mod
 from repro_torch.kernels import gbkmv_score as score_mod, ops, ref
 from repro_torch.kernels.hash_threshold import hash_threshold
 
@@ -122,10 +123,11 @@ def test_card_index_answers_like_cpu_index(cuda_device, tmp_path):
     cpu = api.build("gbkmv", recs, budget, device="cpu")
     before = score_mod.gbkmv_score.launches
     for t in (0.3, 0.5, 0.9):
-        for a, b in zip(card.batch_query(queries, t), cpu.batch_query(queries, t)):
+        for a, b in zip(card.batch_query(queries, t, plan="dense"),
+                        cpu.batch_query(queries, t)):
             np.testing.assert_array_equal(a, b)
     for q in queries[:4]:
-        for x, y in zip(card.topk(q, 10), cpu.topk(q, 10)):
+        for x, y in zip(card.topk(q, 10, plan="dense"), cpu.topk(q, 10)):
             np.testing.assert_array_equal(x, y)
     assert score_mod.gbkmv_score.launches == before + 3 + 4
     path = str(tmp_path / "card.npz")
@@ -149,3 +151,61 @@ def test_arena_residency(cuda_device):
     assert pack.values is dev_values                   # the kept original
     assert torch.equal(pack.values.cpu(), arena.values)
     assert arena.nbytes() == 2 * pack.nbytes()
+
+
+@pytest.mark.parametrize("seed,m,c,gq,cq,w,hi,p", [
+    (0, 8, 16, 1, 16, 1, 64, 37),
+    (1, 13, 16, 3, 24, 2, 64, 200),       # query wider than records
+    (2, 40, 32, 4, 8, 4, 2**32, 1000),
+    (3, 64, 8, 2, 8, 0, 64, 300),         # no buffer words
+    (4, 5001, 56, 16, 56, 1, 2**12, 70_001),
+])
+def test_gather_kernel_matches_plain(cuda_device, seed, m, c, gq, cq, w, hi,
+                                     p):
+    cols = _score_inputs(seed, m, c, gq, cq, w, hi, cuda_device)
+    rng = np.random.default_rng(seed + 50)
+    rec = torch.from_numpy(rng.integers(0, m, size=p).astype(np.int32))
+    q = torch.from_numpy(rng.integers(0, gq, size=p).astype(np.int32))
+    rec, q = rec.to(cuda_device), q.to(cuda_device)
+    before = gs_mod.gather_score.launches
+    got = gs_mod.gather_score(*cols, rec, q)
+    assert gs_mod.gather_score.launches == before + 1
+    assert torch.equal(got, ref.gather_score_ref(*cols, rec, q))
+    # Each pair scores what the dense kernel gives it.
+    dense = ops.score_index(*cols)
+    assert torch.equal(got, dense[rec.long(), q.long()])
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    assert gs_mod.gather_score(*cols, empty, empty).numel() == 0
+    assert gs_mod.gather_score.launches == before + 1
+
+
+def test_card_pruned_route_answers_like_cpu(cuda_device, tmp_path):
+    recs = generate_dataset(m=2000, n_elems=3000, alpha_freq=1.14,
+                            alpha_size=2.5, size_min=5, size_max=80, seed=3)
+    budget = int(0.15 * sum(len(r) for r in recs))
+    queries = make_query_workload(recs, 16, seed=2)
+    card = api.build("gbkmv", recs, budget, postings="eager")
+    cpu = api.build("gbkmv", recs, budget, device="cpu")
+    assert card.core.sketches.device_pack(cuda_device).device.type == "cuda"
+    before = gs_mod.gather_score.launches
+    for t in (0.3, 0.5, 0.9):
+        got = card.batch_query(queries, t, plan="pruned")
+        for a, b, c in zip(got, cpu.batch_query(queries, t, plan="pruned"),
+                           cpu.batch_query(queries, t, plan="dense")):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+    assert gs_mod.gather_score.launches == before + 3
+    for t in (0.3, 0.9):
+        for a, b in zip(card.batch_query(queries, t),
+                        cpu.batch_query(queries, t, plan="dense")):
+            np.testing.assert_array_equal(a, b)
+    for q in queries[:4]:
+        for x, y in zip(card.topk(q, 10, plan="pruned"),
+                        cpu.topk(q, 10, plan="dense")):
+            np.testing.assert_array_equal(x, y)
+    path = str(tmp_path / "card.npz")
+    card.save(path)
+    back = api.load_index(path)
+    for a, b in zip(back.batch_query(queries, 0.5, plan="pruned"),
+                    card.batch_query(queries, 0.5, plan="pruned")):
+        np.testing.assert_array_equal(a, b)
