@@ -179,6 +179,21 @@ def test_gather_kernel_matches_plain(cuda_device, seed, m, c, gq, cq, w, hi,
     assert gs_mod.gather_score.launches == before + 1
 
 
+def test_gather_kernel_out_of_range_index_writes_nan(cuda_device):
+    """An index outside the rows reads nothing and scores NaN; the pairs
+    in range score as usual."""
+    cols = _score_inputs(6, 20, 8, 3, 8, 1, 64, cuda_device)
+    rec = torch.tensor([0, 20, -1, 5, 19], dtype=torch.int32,
+                       device=cuda_device)
+    q = torch.tensor([0, 1, 2, 3, 2], dtype=torch.int32, device=cuda_device)
+    got = gs_mod.gather_score(*cols, rec, q)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1:4]).all()
+    keep = torch.tensor([0, 4], device=cuda_device)
+    assert torch.equal(got[keep], ref.gather_score_ref(*cols, rec[keep],
+                                                       q[keep]))
+
+
 def test_card_pruned_route_answers_like_cpu(cuda_device, tmp_path):
     recs = generate_dataset(m=2000, n_elems=3000, alpha_freq=1.14,
                             alpha_size=2.5, size_min=5, size_max=80, seed=3)
