@@ -27,8 +27,10 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
   kernels  per kernel: launches on the main paths, error, times, bound
 
 Two main paths are counted: the dense path (build, query, save) and the
-planned path (pruned). The launch counts are set to 0 just before each and
-read just after; the parity phase's launches do not count. Any failed
+planned path (the pruned phase's api calls). The launch counts are set to 0
+just before each and read just after. The pruned phase's checks and its
+stage-by-stage re-runs come after that read, and the parity phase's
+launches do not count either. Any failed
 check raises, so the script exits non-zero and prints no result. The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -61,9 +63,8 @@ from repro_torch.kernels.gather_score import gather_score  # noqa: E402
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
     fused_build_columns, hash_threshold)
-from repro_torch.planner import (choose_plan, f32_threshold,  # noqa: E402
-                                 merged_candidates, postings_equal,
-                                 topk_select)
+from repro_torch.planner import (candidates_for, choose_plan,  # noqa: E402
+                                 f32_threshold, postings_equal, topk_select)
 
 NUM_RECORDS = 480_189      # paper Table II, Netflix
 UNIVERSE = 17_770
@@ -396,8 +397,7 @@ def pruned_stages(index, b, t):
     choose_plan(post, hash_rows, bit_rows, t, s.num_records, s.capacity,
                 plan="pruned")
     t2 = time.perf_counter()
-    gen = merged_candidates(post)
-    cands = [gen(qh, qb, t, int(qs))
+    cands = [candidates_for(post, qh, qb, t, int(qs))
              for qh, qb, qs in zip(hash_rows, bit_rows, sizes)]
     lens = [len(c.rec_ids) for c in cands]
     cand_rec = np.concatenate([c.rec_ids for c in cands]).astype(np.int32)
@@ -424,11 +424,13 @@ def pruned_stages(index, b, t):
     return dict(zip(STAGES, ms.tolist())), hits, cand_rec, cand_q
 
 
-def phase_pruned(index, batch: RaggedBatch, budget: int, batches):
-    """The planned route on the serving index: postings, plan="auto",
-    forced plan="pruned" against plan="dense", pruned top-k, and a
-    save/load round trip carrying the postings. Returns the candidate
-    list (cand_rec, cand_q) of the first batch at the middle threshold."""
+def phase_pruned(index, batch: RaggedBatch, budget: int, batches) -> dict:
+    """The planned route on the serving index, through the api alone:
+    postings built lazily and eagerly, plan="auto" on one batch, forced
+    plan="pruned" on CHECK_BATCHES batches at each t, pruned top-k, and a
+    save/load round trip carrying the postings. Records what the checks
+    in :func:`check_pruned` need; that runs after the launch counts are
+    read, so its comparisons are not counted."""
     arena = index.core.sketches
     require(arena._post is None, "no postings before the planned path")
     t0 = time.perf_counter()
@@ -438,75 +440,34 @@ def phase_pruned(index, batch: RaggedBatch, budget: int, batches):
     eager = api.build("gbkmv", batch, budget, postings="eager")
     sync()
     eager_s = time.perf_counter() - t0
-    require(postings_equal(eager.core.sketches._post, post),
-            "eager postings equal lazy postings")
+    run = {"post": post, "eager_post": eager.core.sketches._post,
+           "postings": {
+               "nbytes": post.nbytes(), "keys": len(post.keys),
+               "tail_entries": post.tail.nnz,
+               "tail_blocks": post.tail.num_blocks,
+               "buf_entries": post.buf.nnz, "buf_blocks": post.buf.num_blocks,
+               "lazy_build_s": lazy_s, "eager_index_build_s": eager_s}}
     del eager
-    out = {"phase": "pruned", "postings": {
-        "nbytes": post.nbytes(), "keys": len(post.keys),
-        "tail_entries": post.tail.nnz, "tail_blocks": post.tail.num_blocks,
-        "buf_entries": post.buf.nnz, "buf_blocks": post.buf.num_blocks,
-        "lazy_build_s": lazy_s, "eager_index_build_s": eager_s,
-        "lazy_equals_eager": True}}
 
-    t_mid = THRESHOLDS[1]
     t0 = time.perf_counter()
-    got = index.batch_query(batches[0], t_mid)
-    auto_ms = (time.perf_counter() - t0) * 1e3
-    lp = index.last_plan
-    want = index.batch_query(batches[0], t_mid, plan="dense")
-    require(all(np.array_equal(a, b) for a, b in zip(got, want)),
-            "plan='auto' hits equal the dense route's")
-    out["auto"] = {"threshold": t_mid, "path": lp.path, "hits": lp.hits,
-                   "blocks": lp.blocks, "tail_blocks": lp.tail_blocks,
-                   "tail_dense_blocks": lp.tail_dense_blocks,
-                   "est_dense": lp.est_dense, "est_pruned": lp.est_pruned,
-                   "ms": auto_ms, "equals_dense": True}
+    run["auto_hits"] = index.batch_query(batches[0], THRESHOLDS[1])
+    run["auto_ms"] = (time.perf_counter() - t0) * 1e3
+    run["auto_plan"] = index.last_plan
 
-    forced, pruned_hits, stage_rows = [], {}, []
+    run["forced"] = []
     for i in range(CHECK_BATCHES):
         for t in THRESHOLDS:
             t0 = time.perf_counter()
             got = index.batch_query(batches[i], t, plan="pruned")
             ms = (time.perf_counter() - t0) * 1e3
-            require(index.last_plan.path == "pruned", "forced pruned route")
-            cands = int(sum(index.last_candidate_sizes))
-            want = index.batch_query(batches[i], t, plan="dense")
-            require(all(np.array_equal(a, b) for a, b in zip(got, want)),
-                    f"pruned hits of batch {i} at t={t} equal dense hits")
-            pruned_hits[(i, t)] = got
-            # The same batch again, stage by stage.
-            stages, hits, rec, qq = pruned_stages(index, batches[i], t)
-            require(all(np.array_equal(a, b) for a, b in zip(hits, got))
-                    and len(rec) == cands,
-                    f"staged batch {i} at t={t} equals the route")
-            if (i, t) == (0, t_mid):
-                cand_list = (rec, qq)
-            stage_rows.append(stages)
-            forced.append({"batch": i, "threshold": t, "candidates": cands,
-                           "hits": int(sum(len(h) for h in got)), "ms": ms,
-                           "candidates_ms": stages["candidates_ms"],
-                           "b5_ms": stages["b5_ms"]})
-    out["forced"] = forced
-    out["forced_ms_p50"] = pctl([r["ms"] for r in forced], 50)
-    out["forced_equal_dense"] = len(forced)
-    med = {k: float(np.median([r[k] for r in stage_rows])) for k in STAGES}
-    total = sum(med.values())
-    out["breakdown"] = {"batches": len(stage_rows), **med,
-                        "candidates_share": med["candidates_ms"] / total,
-                        "b5_share": med["b5_ms"] / total}
+            run["forced"].append((i, t, got, ms, index.last_plan.path,
+                                  int(sum(index.last_candidate_sizes))))
 
-    topk_ms = []
+    run["topk"] = []
     for q in batches[0]:
         t0 = time.perf_counter()
         ids, sc = index.topk(q, TOPK, plan="pruned")
-        topk_ms.append((time.perf_counter() - t0) * 1e3)
-        dids, dsc = index.topk(q, TOPK, plan="dense")
-        require(np.array_equal(ids, dids)
-                and np.array_equal(sc.view(np.uint32), dsc.view(np.uint32)),
-                f"pruned top-{TOPK} equals dense top-{TOPK}")
-    out["topk"] = {"k": TOPK, "queries": len(batches[0]),
-                   "ms_p50": pctl(topk_ms, 50), "ms_p90": pctl(topk_ms, 90),
-                   "equals_dense": True}
+        run["topk"].append((ids, sc, (time.perf_counter() - t0) * 1e3))
 
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "netflix_postings.npz")
@@ -519,22 +480,87 @@ def phase_pruned(index, batch: RaggedBatch, budget: int, batches):
         t0 = time.perf_counter()
         again = api.load_index(path)
         load_s = time.perf_counter() - t0
+    run["reloaded_post"] = again.core.sketches._post
+    run["reloaded_hits"] = {t: again.batch_query(batches[0], t, plan="pruned")
+                            for t in THRESHOLDS}
+    run["reloaded_topk"] = again.topk(batches[0][0], TOPK, plan="pruned")
+    run["save"] = {"file_bytes": size, "post_keys": len(post_keys),
+                   "save_s": save_s, "load_s": load_s}
     require("post_blk_payload" in post_keys and "post_buf_blk_meta" in post_keys,
             "saved file carries the postings")
-    require(postings_equal(again.core.sketches._post, post),
+    return run
+
+
+def check_pruned(index, batches, run, hits_seen, topk_seen):
+    """Hold the planned route's answers against the dense route's (from
+    the query phase), time each stage of the forced batches, and emit the
+    phase line. Returns the candidate list (cand_rec, cand_q) of the
+    first batch at the middle threshold."""
+    post = run["post"]
+    require(postings_equal(run["eager_post"], post),
+            "eager postings equal lazy postings")
+    out = {"phase": "pruned",
+           "postings": {**run["postings"], "lazy_equals_eager": True}}
+
+    t_mid = THRESHOLDS[1]
+    require(all(np.array_equal(a, b) for a, b in
+                zip(run["auto_hits"], hits_seen[(0, t_mid)])),
+            "plan='auto' hits equal the dense route's")
+    lp = run["auto_plan"]
+    out["auto"] = {"threshold": t_mid, "path": lp.path, "hits": lp.hits,
+                   "blocks": lp.blocks, "tail_blocks": lp.tail_blocks,
+                   "tail_dense_blocks": lp.tail_dense_blocks,
+                   "est_dense": lp.est_dense, "est_pruned": lp.est_pruned,
+                   "ms": run["auto_ms"], "equals_dense": True}
+
+    forced, stage_rows = [], []
+    for i, t, got, ms, path, cands in run["forced"]:
+        require(path == "pruned", "forced pruned route")
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(got, hits_seen[(i, t)])),
+                f"pruned hits of batch {i} at t={t} equal dense hits")
+        # The same batch again, stage by stage.
+        stages, hits, rec, qq = pruned_stages(index, batches[i], t)
+        require(all(np.array_equal(a, b) for a, b in zip(hits, got))
+                and len(rec) == cands,
+                f"staged batch {i} at t={t} equals the route")
+        if (i, t) == (0, t_mid):
+            cand_list = (rec, qq)
+        stage_rows.append(stages)
+        forced.append({"batch": i, "threshold": t, "candidates": cands,
+                       "hits": int(sum(len(h) for h in got)), "ms": ms,
+                       "candidates_ms": stages["candidates_ms"],
+                       "b5_ms": stages["b5_ms"]})
+    out["forced"] = forced
+    out["forced_ms_p50"] = pctl([r["ms"] for r in forced], 50)
+    out["forced_equal_dense"] = len(forced)
+    med = {k: float(np.median([r[k] for r in stage_rows])) for k in STAGES}
+    total = sum(med.values())
+    out["breakdown"] = {"batches": len(stage_rows), **med,
+                        "candidates_share": med["candidates_ms"] / total,
+                        "b5_share": med["b5_ms"] / total}
+
+    # topk_seen holds the dense top-k of batches[:CHECK_BATCHES], in order.
+    for (ids, sc, _), (dids, dsc) in zip(run["topk"], topk_seen):
+        require(np.array_equal(ids, dids)
+                and np.array_equal(sc.view(np.uint32), dsc.view(np.uint32)),
+                f"pruned top-{TOPK} equals dense top-{TOPK}")
+    topk_ms = [r[2] for r in run["topk"]]
+    out["topk"] = {"k": TOPK, "queries": len(run["topk"]),
+                   "ms_p50": pctl(topk_ms, 50), "ms_p90": pctl(topk_ms, 90),
+                   "equals_dense": True}
+
+    require(postings_equal(run["reloaded_post"], post),
             "reloaded postings equal")
     for t in THRESHOLDS:
-        got = again.batch_query(batches[0], t, plan="pruned")
-        require(all(np.array_equal(a, b)
-                    for a, b in zip(got, pruned_hits[(0, t)])),
+        require(all(np.array_equal(a, b) for a, b in
+                    zip(run["reloaded_hits"][t], hits_seen[(0, t)])),
                 f"reloaded pruned hits at t={t}")
-    q = batches[0][0]
-    require(all(np.array_equal(a, b) for a, b in zip(
-        again.topk(q, TOPK, plan="pruned"), index.topk(q, TOPK, plan="pruned"))),
-        "reloaded pruned top-k")
-    out["save"] = {"file_bytes": size, "post_keys": len(post_keys),
-                   "save_s": save_s, "load_s": load_s,
-                   "identical_after_reload": True}
+    ids, sc, _ = run["topk"][0]
+    rids, rsc = run["reloaded_topk"]
+    require(np.array_equal(ids, rids) and np.array_equal(sc, rsc),
+            "reloaded pruned top-k")
+    out["save"] = {**run["save"], "identical_after_reload": True}
     emit(out)
     return cand_list
 
@@ -752,8 +778,9 @@ def main() -> int:
     phase_save(index, batches, hits_seen, topk_seen, topk_queries)
     launches = {"dense": read()}
     reset()
-    cand_rec, cand_q = phase_pruned(index, batch, budget, batches)
+    run = phase_pruned(index, batch, budget, batches)
     launches["pruned"] = read()
+    cand_rec, cand_q = check_pruned(index, batches, run, hits_seen, topk_seen)
     for path, names in PATH_KERNELS.items():
         for name in names:
             require(launches[path][name] > 0,

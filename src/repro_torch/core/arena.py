@@ -16,7 +16,6 @@ import dataclasses
 import torch
 
 from repro_torch.core.sketches import PackedSketches
-from repro_torch.planner.postings import build_postings
 
 
 @dataclasses.dataclass
@@ -68,6 +67,7 @@ class SketchArena(PackedSketches):
         to the host once, :meth:`ensure_host`), then cached until
         installed or cleared."""
         if self._post is None or self._post.num_records != self.num_records:
+            from repro_torch.planner.postings import build_postings
             self._post = build_postings(self.ensure_host())
         return self._post
 

@@ -2,15 +2,11 @@
 
 Build side: the empirical variance functional Var_GBKMV(r) of paper
 §IV-C6 and its grid minimization. Query side: the planner's relative
-costs of the dense sweep and the postings-pruned verify, with the same
-calibration hook (``REPRO_COST_CALIBRATION``) as the reference, so both
-packages route a batch alike.
+costs of the dense sweep and the postings-pruned verify, the
+reference's default constants, so both packages route a batch alike.
 """
 
 from __future__ import annotations
-
-import json
-import os
 
 import numpy as np
 
@@ -110,9 +106,8 @@ def choose_buffer_size(
 # Query-path cost model (planner): dense sweep vs postings-pruned verify.
 #
 # Relative units: one unit is one (record-slot × query) pair of the dense
-# sweep. The constants only rank the two paths. ``load_calibration`` (or
-# $REPRO_COST_CALIBRATION naming a JSON file) installs fitted constants in
-# their place, as in the reference.
+# sweep. The constants only rank the two paths; none is fitted to the
+# port's own costs yet.
 # ---------------------------------------------------------------------------
 
 DENSE_COST_PER_SLOT = 1.0       # one record-slot scored for one query
@@ -121,58 +116,11 @@ PRUNE_COST_PER_CAND_SLOT = 3.0  # one gather-scored candidate slot
 PRUNE_FIXED_PER_QUERY = 2048.0  # postings probe + ragged dispatch
 PRUNE_COST_PER_BLOCK = 12.0     # block header check + decode setup
 
-_CAL_KEYS = ("dense_cost_per_slot", "prune_cost_per_hit",
-             "prune_cost_per_cand_slot", "prune_fixed_per_query")
-_calibration: dict | None = None
-_env_checked = False
-
-
-def set_calibration(cal: dict | None) -> None:
-    """Install fitted query-path constants (None restores the defaults).
-    A missing ``prune_cost_per_block`` means 0.0: fits that predate
-    blocks fold block decode into the per-hit constant."""
-    global _calibration
-    if cal is not None:
-        missing = [k for k in _CAL_KEYS if k not in cal]
-        if missing:
-            raise ValueError(f"calibration missing keys: {missing}")
-        installed = {k: float(cal[k]) for k in _CAL_KEYS}
-        installed["prune_cost_per_block"] = float(
-            cal.get("prune_cost_per_block", 0.0))
-        cal = installed
-    _calibration = cal
-
-
-def load_calibration(path: str) -> dict:
-    """Read and install calibration from a JSON file: a bare constants
-    dict, or an artifact with a "calibration" key."""
-    with open(path) as f:
-        payload = json.load(f)
-    cal = payload.get("calibration", payload)
-    set_calibration(cal)
-    return cal
-
-
-def calibration() -> dict | None:
-    """The installed calibration, loading $REPRO_COST_CALIBRATION (a
-    path) on first use; a malformed file keeps the defaults."""
-    global _env_checked
-    if _calibration is None and not _env_checked:
-        _env_checked = True
-        path = os.environ.get("REPRO_COST_CALIBRATION", "")
-        if path and os.path.exists(path):
-            try:
-                load_calibration(path)
-            except (ValueError, KeyError, json.JSONDecodeError):
-                pass
-    return _calibration
-
 
 def dense_sweep_cost(m: int, capacity: int, gq: int) -> float:
     """Cost of scoring the full [m, Gq] matrix (one index sweep)."""
-    cal = calibration()
-    a = cal["dense_cost_per_slot"] if cal else DENSE_COST_PER_SLOT
-    return a * float(m) * float(max(capacity, 1)) * max(gq, 1)
+    return (DENSE_COST_PER_SLOT * float(m) * float(max(capacity, 1))
+            * max(gq, 1))
 
 
 def pruned_path_cost(hits: int, capacity: int, gq: int,
@@ -180,14 +128,7 @@ def pruned_path_cost(hits: int, capacity: int, gq: int,
     """Cost of block decode + merge + ragged verify: ``hits`` posting
     entries touched by the batch (a bound on the candidates) in
     ``blocks`` compressed blocks."""
-    cal = calibration()
-    if cal:
-        f, h, s, b = (cal["prune_fixed_per_query"],
-                      cal["prune_cost_per_hit"],
-                      cal["prune_cost_per_cand_slot"],
-                      cal["prune_cost_per_block"])
-    else:
-        f, h, s, b = (PRUNE_FIXED_PER_QUERY, PRUNE_COST_PER_HIT,
-                      PRUNE_COST_PER_CAND_SLOT, PRUNE_COST_PER_BLOCK)
-    return (f * max(gq, 1) + h * float(hits) + b * float(blocks)
-            + s * float(hits) * float(max(capacity, 1)))
+    return (PRUNE_FIXED_PER_QUERY * max(gq, 1)
+            + PRUNE_COST_PER_HIT * float(hits)
+            + PRUNE_COST_PER_BLOCK * float(blocks)
+            + PRUNE_COST_PER_CAND_SLOT * float(hits) * float(max(capacity, 1)))

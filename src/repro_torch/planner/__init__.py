@@ -12,7 +12,7 @@ The ragged verify kernel (B5) lives with the other kernels in
 """
 
 from repro_torch.planner.plan import (PLAN_MODES, QueryPlan, choose_plan,
-                                      merged_candidates, normalize_plan,
+                                      normalize_plan,
                                       probe_block_stats, probe_hits,
                                       probe_hits_per_query, pruned_batch,
                                       pruned_topk, topk_select,
@@ -27,7 +27,7 @@ from repro_torch.planner.prune import (CandidateSet, candidates_for,
                                        threshold_hits_packed)
 
 __all__ = [
-    "PLAN_MODES", "QueryPlan", "choose_plan", "merged_candidates",
+    "PLAN_MODES", "QueryPlan", "choose_plan",
     "normalize_plan", "probe_block_stats", "probe_hits",
     "probe_hits_per_query", "pruned_batch", "pruned_topk", "topk_select",
     "unpack_query_rows",

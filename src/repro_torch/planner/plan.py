@@ -68,73 +68,64 @@ def unpack_query_rows(qp):
 
 
 def _probe(
-    posts: PostingsIndex | Sequence[PostingsIndex],
+    post: PostingsIndex,
     q_hash_rows: Sequence[np.ndarray],
     q_bit_rows: Sequence[np.ndarray],
 ) -> tuple[np.ndarray, int, int, int]:
     """One key-probe pass over the batch: (per-query posting entries,
     tail_blocks, tail_dense_blocks, buf_blocks). Header arithmetic only;
-    nothing decodes. ``posts`` may be a list (one per shard); the counts
-    sum over it."""
-    if isinstance(posts, PostingsIndex):
-        posts = [posts]
+    nothing decodes."""
     gq = len(q_hash_rows)
     per = np.zeros(gq, dtype=np.int64)
-    tb = td = bb = 0
-    if gq:
-        allh = np.concatenate(
-            [np.asarray(q, np.uint32).ravel() for q in q_hash_rows])
-        hidx = np.repeat(np.arange(gq, dtype=np.int64),
-                         [len(np.asarray(q).ravel()) for q in q_hash_rows])
-        allb = np.concatenate(
-            [np.asarray(q, np.int64).ravel() for q in q_bit_rows])
-        bidx = np.repeat(np.arange(gq, dtype=np.int64),
-                         [len(np.asarray(q).ravel()) for q in q_bit_rows])
-    else:
-        allh = np.zeros(0, np.uint32)
-        hidx = allb = bidx = np.zeros(0, np.int64)
-    for post in posts:
-        keys = post.keys
-        row_lens = post.tail_row_lengths()
-        buf_lens = post.buf_row_lengths()
-        rbt = post.tail.row_blocks.astype(np.int64)
-        dcum = np.concatenate(
-            [[0], np.cumsum((post.tail.meta >> np.uint32(13))
-                            & np.uint32(1))]).astype(np.int64)
-        rbb = post.buf.row_blocks.astype(np.int64)
-        pos = np.searchsorted(keys, allh)
-        ok = pos < len(keys)
-        hit = np.zeros(len(allh), dtype=bool)
-        hit[ok] = keys[pos[ok]] == allh[ok]
-        r = pos[hit]
-        # Per-query sums with np.add.at: int64-exact.
-        np.add.at(per, hidx[hit], row_lens[r].astype(np.int64))
-        tb += int((rbt[r + 1] - rbt[r]).sum())
-        td += int((dcum[rbt[r + 1]] - dcum[rbt[r]]).sum())
-        live = allb < post.buf.num_rows
-        qb = allb[live]
-        np.add.at(per, bidx[live], buf_lens[qb].astype(np.int64))
-        bb += int((rbb[qb + 1] - rbb[qb]).sum())
+    if not gq:
+        return per, 0, 0, 0
+    allh = np.concatenate(
+        [np.asarray(q, np.uint32).ravel() for q in q_hash_rows])
+    hidx = np.repeat(np.arange(gq, dtype=np.int64),
+                     [len(np.asarray(q).ravel()) for q in q_hash_rows])
+    allb = np.concatenate(
+        [np.asarray(q, np.int64).ravel() for q in q_bit_rows])
+    bidx = np.repeat(np.arange(gq, dtype=np.int64),
+                     [len(np.asarray(q).ravel()) for q in q_bit_rows])
+    keys = post.keys
+    rbt = post.tail.row_blocks.astype(np.int64)
+    dcum = np.concatenate(
+        [[0], np.cumsum((post.tail.meta >> np.uint32(13))
+                        & np.uint32(1))]).astype(np.int64)
+    rbb = post.buf.row_blocks.astype(np.int64)
+    pos = np.searchsorted(keys, allh)
+    ok = pos < len(keys)
+    hit = np.zeros(len(allh), dtype=bool)
+    hit[ok] = keys[pos[ok]] == allh[ok]
+    r = pos[hit]
+    # Per-query sums with np.add.at: int64-exact.
+    np.add.at(per, hidx[hit], post.tail_row_lengths()[r].astype(np.int64))
+    tb = int((rbt[r + 1] - rbt[r]).sum())
+    td = int((dcum[rbt[r + 1]] - dcum[rbt[r]]).sum())
+    live = allb < post.buf.num_rows
+    qb = allb[live]
+    np.add.at(per, bidx[live], post.buf_row_lengths()[qb].astype(np.int64))
+    bb = int((rbb[qb + 1] - rbb[qb]).sum())
     return per, tb, td, bb
 
 
-def probe_hits_per_query(posts, q_hash_rows, q_bit_rows) -> np.ndarray:
+def probe_hits_per_query(post, q_hash_rows, q_bit_rows) -> np.ndarray:
     """int64[Gq] posting entries a merge would touch per query."""
-    return _probe(posts, q_hash_rows, q_bit_rows)[0]
+    return _probe(post, q_hash_rows, q_bit_rows)[0]
 
 
-def probe_hits(posts, q_hash_rows, q_bit_rows) -> int:
+def probe_hits(post, q_hash_rows, q_bit_rows) -> int:
     """Total posting entries a merge would touch for the batch."""
-    return int(probe_hits_per_query(posts, q_hash_rows, q_bit_rows).sum())
+    return int(probe_hits_per_query(post, q_hash_rows, q_bit_rows).sum())
 
 
-def probe_block_stats(posts, q_hash_rows, q_bit_rows) -> tuple[int, int, int]:
+def probe_block_stats(post, q_hash_rows, q_bit_rows) -> tuple[int, int, int]:
     """(tail_blocks, tail_dense_blocks, buf_blocks) the batch touches."""
-    return _probe(posts, q_hash_rows, q_bit_rows)[1:]
+    return _probe(post, q_hash_rows, q_bit_rows)[1:]
 
 
 def choose_plan(
-    posts: PostingsIndex | Sequence[PostingsIndex],
+    post: PostingsIndex,
     q_hash_rows: Sequence[np.ndarray],
     q_bit_rows: Sequence[np.ndarray],
     threshold: float,
@@ -148,7 +139,7 @@ def choose_plan(
         # Every record passes t ≤ 0; postings can't see zero-overlap pairs.
         return QueryPlan("dense", 0.0, np.inf, 0,
                          "threshold <= 0: pruning unsound, forced dense")
-    per, tb, td, bb = _probe(posts, q_hash_rows, q_bit_rows)
+    per, tb, td, bb = _probe(post, q_hash_rows, q_bit_rows)
     hits = int(per.sum())
     est_dense = cost_model.dense_sweep_cost(m, capacity, gq)
     est_pruned = cost_model.pruned_path_cost(hits, capacity, gq,
@@ -163,43 +154,13 @@ def choose_plan(
                      per, **blk)
 
 
-def merged_candidates(
-    posts: PostingsIndex | Sequence[PostingsIndex],
-    row_offsets: Sequence[int] | None = None,
-) -> Callable[..., prune.CandidateSet]:
-    """Candidate generator over one postings index or a sharded list;
-    ``row_offsets[s]`` maps shard-local record ids to global ids (shard
-    ranges partition the records, so the union is a concatenation that
-    stays sorted)."""
-    if isinstance(posts, PostingsIndex):
-        posts = [posts]
-    if row_offsets is None:
-        row_offsets = [0] * len(posts)
-
-    def gen(qh, qb, t, qs) -> prune.CandidateSet:
-        parts = [prune.candidates_for(p, qh, qb, t, qs) for p in posts]
-        return prune.CandidateSet(
-            rec_ids=np.concatenate(
-                [c.rec_ids + off for c, off in zip(parts, row_offsets)]),
-            counts=np.concatenate([c.counts for c in parts]),
-            o1=np.concatenate([c.o1 for c in parts]),
-            hits=sum(c.hits for c in parts),
-            pruned=sum(c.pruned for c in parts),
-            blocks=sum(c.blocks for c in parts),
-            skipped_blocks=sum(c.skipped_blocks for c in parts),
-        )
-
-    return gen
-
-
 def pruned_batch(
-    posts: PostingsIndex | Sequence[PostingsIndex],
+    post: PostingsIndex,
     q_hash_rows: Sequence[np.ndarray],
     q_bit_rows: Sequence[np.ndarray],
     q_sizes: Sequence[int],
     thresholds,
     score_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
-    row_offsets: Sequence[int] | None = None,
 ) -> tuple[list[np.ndarray], list[prune.CandidateSet]]:
     """Filter-and-verify for one query batch.
 
@@ -210,8 +171,7 @@ def pruned_batch(
     """
     gq = len(q_hash_rows)
     thr = np.broadcast_to(np.asarray(thresholds, np.float64), (gq,))
-    gen = merged_candidates(posts, row_offsets)
-    cands = [gen(qh, qb, float(t), int(qs))
+    cands = [prune.candidates_for(post, qh, qb, float(t), int(qs))
              for qh, qb, t, qs in zip(q_hash_rows, q_bit_rows, thr, q_sizes)]
     lens = [len(c.rec_ids) for c in cands]
     if sum(lens) == 0:
@@ -254,14 +214,13 @@ def topk_select(rec_ids, scores, k: int,
 
 
 def pruned_topk(
-    posts: PostingsIndex | Sequence[PostingsIndex],
+    post: PostingsIndex,
     q_hashes: np.ndarray,
     q_bits: np.ndarray,
     q_size: int,
     k: int,
     score_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
     num_records: int,
-    row_offsets: Sequence[int] | None = None,
     chunk: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Top-k via postings-driven upper-bound pruning.
@@ -275,9 +234,9 @@ def pruned_topk(
     k = min(int(k), int(num_records))
     if k <= 0:
         return np.zeros(0, np.int64), np.zeros(0, np.float32)
-    gen = merged_candidates(posts, row_offsets)
-    cand = gen(np.asarray(q_hashes, np.uint32), np.asarray(q_bits, np.int64),
-               0.0, int(q_size))
+    cand = prune.candidates_for(post, np.asarray(q_hashes, np.uint32),
+                                np.asarray(q_bits, np.int64), 0.0,
+                                int(q_size))
     n = len(cand.rec_ids)
 
     scored_ids: list[np.ndarray] = []

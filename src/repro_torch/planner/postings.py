@@ -267,59 +267,12 @@ class PostingsIndex:
     tau: np.uint32            # largest retained key at build time
 
     def __post_init__(self):
-        self._decoded_tail = None   # (offsets, rec_ids) cache
-        self._decoded_buf = None
         self._row_lens = None       # tail row_lengths cache (probe path)
         self._buf_row_lens = None   # buffer row_lengths cache (probe path)
 
-    @property
-    def nnz(self) -> int:
-        return self.tail.nnz
-
     def nbytes(self) -> int:
-        """At-rest bytes: keys and both block stores (the decoded views
-        are test and debug scaffolding, not counted)."""
+        """At-rest bytes: keys and both block stores."""
         return int(self.keys.nbytes) + self.tail.nbytes() + self.buf.nbytes()
-
-    # -- decoded CSR views (lazy, cached per instance) ----------------------
-
-    def _tail_csr(self):
-        if self._decoded_tail is None:
-            self._decoded_tail = decode_store(self.tail)
-        return self._decoded_tail
-
-    def _buf_csr(self):
-        if self._decoded_buf is None:
-            self._decoded_buf = decode_store(self.buf)
-        return self._decoded_buf
-
-    @property
-    def offsets(self) -> np.ndarray:
-        return self._tail_csr()[0]
-
-    @property
-    def rec_ids(self) -> np.ndarray:
-        return self._tail_csr()[1]
-
-    @property
-    def buf_offsets(self) -> np.ndarray:
-        return self._buf_csr()[0]
-
-    @property
-    def buf_rec_ids(self) -> np.ndarray:
-        return self._buf_csr()[1]
-
-    def posting_lengths(self, hashes: np.ndarray) -> np.ndarray:
-        """int64[n] posting-list length per query hash (0 when absent):
-        one searchsorted over the keys plus header arithmetic."""
-        h = np.asarray(hashes, dtype=np.uint32)
-        pos = np.searchsorted(self.keys, h)
-        ok = pos < len(self.keys)
-        hit = np.zeros(len(h), dtype=bool)
-        hit[ok] = self.keys[pos[ok]] == h[ok]
-        out = np.zeros(len(h), dtype=np.int64)
-        out[hit] = self.tail_row_lengths()[pos[hit]]
-        return out
 
     def tail_row_lengths(self) -> np.ndarray:
         """int64[U] entries per key (header arithmetic, cached)."""
@@ -345,17 +298,14 @@ def _bit_matrix(buf: np.ndarray) -> np.ndarray:
     return bits.reshape(m, w * 32).astype(bool)
 
 
-def _row_pairs(s: PackedSketches,
-               rows: slice) -> tuple[np.ndarray, np.ndarray]:
-    """Flat (hash, record) pairs over ``rows`` of the packed values."""
-    vals = to_numpy(s.values)[rows]
-    lens = s.lengths.cpu().numpy()[rows]
+def _row_pairs(s: PackedSketches) -> tuple[np.ndarray, np.ndarray]:
+    """Flat (hash, record) pairs over the packed values' live slots."""
+    vals = to_numpy(s.values)
+    lens = s.lengths.cpu().numpy()
     n, c = vals.shape
     live = np.arange(c)[None, :] < lens[:, None]
     h = vals[live]
-    start = rows.start or 0
-    rec = np.broadcast_to(np.arange(start, start + n, dtype=np.int32)[:, None],
-                          (n, c))[live]
+    rec = np.broadcast_to(np.arange(n, dtype=np.int32)[:, None], (n, c))[live]
     return h.astype(np.uint32), rec
 
 
@@ -368,7 +318,7 @@ def _csr_from_pairs(h: np.ndarray, rec: np.ndarray):
     return keys, offsets, rec.astype(np.int32)
 
 
-def _buf_csr(buf: np.ndarray, row_offset: int = 0):
+def _buf_csr(buf: np.ndarray):
     """(offsets int64[R+1], rec_ids int32) from a bitmap block."""
     bits = _bit_matrix(buf)
     _, r = bits.shape
@@ -377,7 +327,7 @@ def _buf_csr(buf: np.ndarray, row_offset: int = 0):
     bit_idx, recs = np.nonzero(bits.T)       # sorted by bit, then record
     counts = np.bincount(bit_idx, minlength=r)
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    return offsets, (recs + row_offset).astype(np.int32)
+    return offsets, recs.astype(np.int32)
 
 
 def from_flat(keys, offsets, rec_ids, buf_offsets, buf_rec_ids,
@@ -394,7 +344,7 @@ def build_postings(sketches: PackedSketches) -> PostingsIndex:
     """Build hash + buffer postings from a packed index in one host pass
     (columns on any device; they are read back as numpy)."""
     m = sketches.num_records
-    h, rec = _row_pairs(sketches, slice(0, m))
+    h, rec = _row_pairs(sketches)
     keys, offsets, rec_ids = _csr_from_pairs(h, rec)
     buf_offsets, buf_rec_ids = _buf_csr(to_numpy(sketches.buf))
     tau = keys[-1] if len(keys) else np.uint32(0)

@@ -4,8 +4,6 @@ model, ``choose_plan``, candidate generation, ``pruned_batch`` and
 plan fields, candidate sets, hit lists and top-k orders are equal, and
 pruned answers equal the dense route's."""
 
-import json
-
 import numpy as np
 import pytest
 
@@ -46,16 +44,18 @@ def port_index(corpus):
 
 
 @pytest.fixture
-def calibrated():
-    """Install the same calibration in both packages (one that makes the
-    pruned route cheap), and restore the defaults afterwards."""
+def calibrated(monkeypatch):
+    """Give both packages the same query-path constants (ones that make
+    the pruned route cheap), and restore the defaults afterwards: the
+    reference through its calibration hook, the port through its module
+    constants."""
     cal = {"dense_cost_per_slot": 50.0, "prune_cost_per_hit": 1.0,
            "prune_cost_per_cand_slot": 0.5, "prune_fixed_per_query": 8.0}
-    ref_cost.set_calibration(cal)
-    cost_model.set_calibration(cal)
+    ref_cost.set_calibration(cal)     # a missing per-block cost means 0.0
+    for key, v in {**cal, "prune_cost_per_block": 0.0}.items():
+        monkeypatch.setattr(cost_model, key.upper(), v)
     yield cal
     ref_cost.set_calibration(None)
-    cost_model.set_calibration(None)
 
 
 def _plan_inputs(index, queries):
@@ -79,36 +79,27 @@ def test_query_rows_match_reference(corpus, ref_index, port_index):
 
 @pytest.mark.parametrize("gq,hits,blocks", [(1, 0, 0), (16, 9824975, 76793),
                                             (3, 1234, 17)])
-def test_cost_model_matches_reference(gq, hits, blocks, calibrated):
+def test_cost_model_matches_reference(gq, hits, blocks, calibrated,
+                                      monkeypatch):
     args = (480189, 56, gq)
     assert cost_model.dense_sweep_cost(*args) == ref_cost.dense_sweep_cost(*args)
     assert (cost_model.pruned_path_cost(hits, 56, gq, blocks=blocks)
             == ref_cost.pruned_path_cost(hits, 56, gq, blocks=blocks))
-    cost_model.set_calibration(None)
+    monkeypatch.undo()
     ref_cost.set_calibration(None)
     assert cost_model.dense_sweep_cost(*args) == ref_cost.dense_sweep_cost(*args)
     assert (cost_model.pruned_path_cost(hits, 56, gq, blocks=blocks)
             == ref_cost.pruned_path_cost(hits, 56, gq, blocks=blocks))
 
 
-def test_calibration_file_and_env(tmp_path, monkeypatch):
-    cal = {"dense_cost_per_slot": 2.0, "prune_cost_per_hit": 3.0,
-           "prune_cost_per_cand_slot": 4.0, "prune_fixed_per_query": 5.0}
-    path = tmp_path / "cal.json"
-    path.write_text(json.dumps({"calibration": cal}))
-    monkeypatch.setenv("REPRO_COST_CALIBRATION", str(path))
-    monkeypatch.setattr(cost_model, "_calibration", None)
-    monkeypatch.setattr(cost_model, "_env_checked", False)
-    try:
-        got = cost_model.calibration()
-        assert got == {**cal, "prune_cost_per_block": 0.0}
-        assert cost_model.pruned_path_cost(10, 2, 1, blocks=3) == \
-            5.0 + 3.0 * 10 + 4.0 * 10 * 2
-        with pytest.raises(ValueError, match="missing"):
-            cost_model.set_calibration({"dense_cost_per_slot": 1.0})
-        assert cost_model.load_calibration(str(path)) == cal
-    finally:
-        cost_model.set_calibration(None)
+def test_cost_constants_match_reference():
+    for name in ("DENSE_COST_PER_SLOT", "PRUNE_COST_PER_HIT",
+                 "PRUNE_COST_PER_CAND_SLOT", "PRUNE_FIXED_PER_QUERY",
+                 "PRUNE_COST_PER_BLOCK"):
+        assert getattr(cost_model, name) == getattr(ref_cost, name), name
+    assert cost_model.pruned_path_cost(10, 2, 1, blocks=3) == \
+        2048.0 + 6.0 * 10 + 12.0 * 3 + 3.0 * 10 * 2
+    assert cost_model.dense_sweep_cost(5, 0, 0) == 5.0
 
 
 @pytest.mark.parametrize("plan", ["auto", "dense", "pruned"])

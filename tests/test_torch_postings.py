@@ -128,13 +128,14 @@ def test_build_postings_matches_reference(corpus, build_backend):
     got = P.build_postings(port.sketches)
     _assert_postings_equal(got, want)
     assert P.postings_equal(got, got) and got.nbytes() == want.nbytes()
-    np.testing.assert_array_equal(got.rec_ids, want.rec_ids)
-    np.testing.assert_array_equal(got.offsets, want.offsets)
-    np.testing.assert_array_equal(got.buf_rec_ids, want.buf_rec_ids)
-    np.testing.assert_array_equal(got.buf_offsets, want.buf_offsets)
-    h = np.concatenate([got.keys[:5], np.asarray([1, 2**32 - 1], np.uint32)])
-    np.testing.assert_array_equal(got.posting_lengths(h),
-                                  want.posting_lengths(h))
+    offsets, rec_ids = P.decode_store(got.tail)
+    np.testing.assert_array_equal(rec_ids, want.rec_ids)
+    np.testing.assert_array_equal(offsets, want.offsets)
+    buf_offsets, buf_rec_ids = P.decode_store(got.buf)
+    np.testing.assert_array_equal(buf_rec_ids, want.buf_rec_ids)
+    np.testing.assert_array_equal(buf_offsets, want.buf_offsets)
+    np.testing.assert_array_equal(got.tail_row_lengths(),
+                                  want.tail_row_lengths())
     np.testing.assert_array_equal(got.buf_row_lengths(),
                                   want.buf_row_lengths())
 
@@ -143,13 +144,11 @@ def test_from_flat_and_equality(corpus):
     recs, budget, _ = corpus
     port = gbkmv.build_gbkmv(recs, budget, device="cpu")
     post = P.build_postings(port.sketches)
-    again = P.from_flat(post.keys, post.offsets, post.rec_ids,
-                        post.buf_offsets, post.buf_rec_ids,
-                        post.num_records, post.tau)
+    flat = (post.keys, *P.decode_store(post.tail), *P.decode_store(post.buf),
+            post.num_records, post.tau)
+    again = P.from_flat(*flat)
     assert P.postings_equal(again, post)
-    _assert_postings_equal(again, RP.from_flat(
-        post.keys, post.offsets, post.rec_ids, post.buf_offsets,
-        post.buf_rec_ids, post.num_records, post.tau))
+    _assert_postings_equal(again, RP.from_flat(*flat))
     other = P.build_postings(gbkmv.build_gbkmv(recs[:-1], budget,
                                                device="cpu").sketches)
     assert not P.postings_equal(other, post)
@@ -219,10 +218,12 @@ def test_version2_flat_postings_load(corpus, tmp_path):
     d = api.index_to_arrays(port)
     for k in [k for k in d if k.startswith("post_")]:
         del d[k]
+    offsets, rec_ids = P.decode_store(post.tail)
+    buf_offsets, buf_rec_ids = P.decode_store(post.buf)
     d.update(arena_version=np.int64(2), post_keys=post.keys,
-             post_tau=np.uint32(post.tau), post_offsets=post.offsets,
-             post_rec_ids=post.rec_ids, post_buf_offsets=post.buf_offsets,
-             post_buf_rec_ids=post.buf_rec_ids)
+             post_tau=np.uint32(post.tau), post_offsets=offsets,
+             post_rec_ids=rec_ids, post_buf_offsets=buf_offsets,
+             post_buf_rec_ids=buf_rec_ids)
     path = str(tmp_path / "v2.npz")
     np.savez(path, engine="gbkmv", **d)
     back = api.load_index(path, device="cpu")
