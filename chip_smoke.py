@@ -17,22 +17,31 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            checked against the host numpy route over all records; batch
            latency and QPS
   save     save/load round trip answers identically
-  pruned   the planned route: postings built lazily and eagerly (equal),
-           plan="auto" on one batch, forced plan="pruned" on 4 batches at
-           each t (hits equal the dense route's, B5 verifies), a stage
-           breakdown, pruned top-10 equal to dense, and a save/load round
-           trip that carries the postings
+  pruned   the device pruned route (backend="torch"): postings built
+           lazily on the host and eagerly by the device encode (equal, and
+           their device mirrors equal), plan="auto" on one batch, forced
+           plan="pruned" on every batch at each t (hits of 4 batches equal
+           the dense route's; p50/p99 batch latency), pruned top-10 of the
+           64 checked queries equal to dense, batch 0's raw scores equal to
+           B1's matrix bit for bit, one batch's middle under
+           torch.cuda.set_sync_debug_mode("error"), a stage breakdown with
+           CUDA events, and a save/load round trip carrying the postings
+  host_pruned  the planner's host route (planner.pruned_batch /
+           pruned_topk with the index's B5 verify) on 4 batches at each t
+           and 16 top-10s, equal to the dense and device routes; its stages
   parity   each kernel against its plain PyTorch version on the card, at
-           the main paths' shapes and on edge cases, exact equality
+           the main paths' shapes and on edge cases, exact equality (B4 also
+           on an index whose tail has dense-bitmap blocks and on synthetic
+           blocks)
   kernels  per kernel: launches on the main paths, error, times, bound
 
-Two main paths are counted: the dense path (build, query, save) and the
-planned path (the pruned phase's api calls). The launch counts are set to 0
-just before each and read just after. The pruned phase's checks and its
-stage-by-stage re-runs come after that read, and the parity phase's
-launches do not count either. Any failed
-check raises, so the script exits non-zero and prints no result. The last
-line is ``{"ok": true, "device": {...}}``.
+Three main paths are counted: the dense path (build, query, save), the
+device pruned path (the pruned phase's api calls) and the host pruned path
+(the host_pruned phase's planner calls). The launch counts are set to 0
+just before each and read just after. The checks and stage-by-stage
+re-runs come after that read, and the parity phase's launches do not
+count either. Any failed check raises, so the script exits non-zero and
+prints no result. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,18 +62,25 @@ import torch  # noqa: E402
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core import gbkmv  # noqa: E402
-from repro_torch.core.estimators import gbkmv_containment_np  # noqa: E402
+from repro_torch.core.arena import DevicePostings  # noqa: E402
+from repro_torch.core.estimators import (  # noqa: E402
+    containment_matrix, gbkmv_containment_np)
 from repro_torch.core.hashing import PAD, as_u64, to_numpy, to_tensor  # noqa: E402
 from repro_torch.core.sketches import RaggedBatch  # noqa: E402
 from repro_torch.data.datasets import SPECS  # noqa: E402
 from repro_torch.data.synth import generate_dataset, make_query_workload  # noqa: E402
-from repro_torch.kernels import library, ref  # noqa: E402
+from repro_torch.kernels import library, postings_merge, ref  # noqa: E402
 from repro_torch.kernels.gather_score import gather_score  # noqa: E402
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
-    fused_build_columns, hash_threshold)
-from repro_torch.planner import (candidates_for, choose_plan,  # noqa: E402
-                                 f32_threshold, postings_equal, topk_select)
+    fused_build_columns, fused_encode_postings, hash_threshold)
+from repro_torch.kernels.postings_merge import (  # noqa: E402
+    block_decode, postings_probe)
+from repro_torch.planner import (  # noqa: E402
+    PostingsIndex, candidates_for, choose_plan, encode_store,
+    f32_threshold, mask_to_hits, postings_equal, pruned_batch, pruned_topk,
+    topk_select)
+from repro_torch.planner import device as planner_device  # noqa: E402
 
 NUM_RECORDS = 480_189      # paper Table II, Netflix
 UNIVERSE = 17_770
@@ -74,6 +90,9 @@ NUM_BATCHES = 64
 THRESHOLDS = (0.5, 0.7, 0.9)
 TOPK = 10
 CHECK_BATCHES = 4
+
+# The card every phase runs on.
+DEV = torch.device("cuda")
 
 # Published H100 SXM peaks: HBM rate, and the
 # float32 rate outside the tensor cores, used for the kernels' ALU work.
@@ -93,12 +112,23 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/gather_score.cu",
         "replaces": "src/repro/kernels/gather_score.py:41",
     },
+    "postings_probe": {
+        "source": "src/repro_torch/kernels/csrc/postings_probe.cu",
+        "replaces": "src/repro/kernels/postings_merge.py:104",
+    },
+    "block_decode": {
+        "source": "src/repro_torch/kernels/csrc/block_decode.cu",
+        "replaces": "src/repro/kernels/postings_merge.py:177",
+    },
 }
-# The kernels each main path must launch.
+# The kernels each main path must launch: the dense route (build, query,
+# save), the device pruned route of the api, and the planner's host route.
 PATH_KERNELS = {"dense": ("hash_threshold", "gbkmv_score"),
-                "pruned": ("gather_score",)}
+                "pruned": ("postings_probe", "block_decode"),
+                "host_pruned": ("gather_score",)}
 COUNTERS = {"hash_threshold": hash_threshold, "gbkmv_score": gbkmv_score,
-            "gather_score": gather_score}
+            "gather_score": gather_score, "postings_probe": postings_probe,
+            "block_decode": block_decode}
 
 
 def emit(obj) -> None:
@@ -128,6 +158,26 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def graph_ms(launch, reps: int = 20) -> float:
+    """Device milliseconds of one bare kernel launch (no wrapper, no host
+    issue time): a CUDA graph of ``reps`` launches, replayed between two
+    events. ``launch(stream)`` calls the C entry point and returns its
+    error code."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            library.check(launch(torch.cuda.current_stream().cuda_stream),
+                          "graph capture")
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def pctl(xs, q) -> float:
@@ -210,7 +260,7 @@ def phase_build(batch: RaggedBatch, budget: int):
 
         t0 = time.perf_counter()
         fused_build_columns(batch, ~is_top, tail_budget, tau_mode=tau_mode,
-                            bitmaps=bitmaps, device="cuda")
+                            bitmaps=bitmaps, device=DEV)
         sync()
         device_part_s = time.perf_counter() - t0
 
@@ -219,7 +269,7 @@ def phase_build(batch: RaggedBatch, budget: int):
                                  build_backend="numpy", device="cpu")
         host_build_s = time.perf_counter() - t0
 
-        require(dev.core.sketches.device.type == "cuda",
+        require(dev.core.sketches.device.type == DEV.type,
                 "device build left its columns on the card")
         dcols = _host_columns(dev.core.sketches)
         hcols = _host_columns(host.sketches)
@@ -264,9 +314,6 @@ def query_breakdown(index, batches, t) -> dict:
     """Median host-clock ms of each layer a dense batch passes through,
     called as ``batch_query`` calls them, with a sync after the device
     work; and the same split for top-k (scores, then the host head)."""
-    from repro_torch.core.estimators import containment_matrix
-    from repro_torch.planner import mask_to_hits
-
     x = index.core.sketches.device_pack(index.device)
     thr = torch.tensor([float(f32_threshold(t))], device=x.device)
     rows = []
@@ -380,14 +427,276 @@ def phase_save(index, batches, hits_seen, topk_seen, topk_queries):
           "load_s": load_s, "identical_after_reload": True})
 
 
-STAGES = ("sketch_ms", "probe_ms", "candidates_ms", "upload_ms", "b5_ms",
-          "fetch_ms", "cut_ms")
+def phase_pruned(index, batch: RaggedBatch, budget: int, batches,
+                 topk_queries) -> dict:
+    """The device pruned route on the serving index, through the api
+    alone: postings built lazily (host) and eagerly (device encode),
+    plan="auto" on one batch, forced plan="pruned" on every batch at each
+    t, pruned top-k for the checked queries, and a save/load round trip
+    carrying the postings. Records what :func:`check_pruned` holds against
+    the dense route; that runs after the launch counts are read."""
+    arena = index.core.sketches
+    require(arena._post is None, "no postings before the planned path")
+    t0 = time.perf_counter()
+    post = index._postings()
+    lazy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager = api.build("gbkmv", batch, budget, postings="eager")
+    sync()
+    eager_s = time.perf_counter() - t0
+    run = {"post": post, "eager_post": eager.core.sketches._post,
+           "eager_dev_post": eager.core.sketches._dev_post,
+           "postings": {
+               "nbytes": post.nbytes(), "keys": len(post.keys),
+               "tail_entries": post.tail.nnz,
+               "tail_blocks": post.tail.num_blocks,
+               "buf_entries": post.buf.nnz, "buf_blocks": post.buf.num_blocks,
+               "lazy_build_s": lazy_s, "eager_index_build_s": eager_s}}
+    del eager
+
+    t0 = time.perf_counter()
+    run["auto_hits"] = index.batch_query(batches[0], THRESHOLDS[1])
+    run["auto_ms"] = (time.perf_counter() - t0) * 1e3
+    run["auto_plan"] = index.last_plan
+
+    index.batch_query(batches[0], THRESHOLDS[0], plan="pruned")   # warm-up
+    sync()
+    run["forced"], run["forced_ms"] = {}, []
+    for t in THRESHOLDS:
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            got = index.batch_query(b, t, plan="pruned")
+            run["forced_ms"].append((time.perf_counter() - t0) * 1e3)
+            require(index.last_plan.path == "pruned"
+                    and index.last_candidate_sizes is None,
+                    "forced pruned batches take the device route")
+            if i < CHECK_BATCHES:
+                run["forced"][(i, t)] = got
+
+    run["topk"] = []
+    for q in topk_queries:
+        t0 = time.perf_counter()
+        ids, sc = index.topk(q, TOPK, plan="pruned")
+        run["topk"].append((ids, sc, (time.perf_counter() - t0) * 1e3))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "netflix_postings.npz")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        with np.load(path) as f:
+            post_keys = sorted(k for k in f.files if k.startswith("post_"))
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        again = api.load_index(path)
+        load_s = time.perf_counter() - t0
+    run["reloaded_post"] = again.core.sketches._post
+    run["reloaded_hits"] = {t: again.batch_query(batches[0], t, plan="pruned")
+                            for t in THRESHOLDS}
+    run["reloaded_topk"] = again.topk(batches[0][0], TOPK, plan="pruned")
+    run["save"] = {"file_bytes": size, "post_keys": len(post_keys),
+                   "save_s": save_s, "load_s": load_s}
+    require("post_blk_payload" in post_keys and "post_buf_blk_meta" in post_keys,
+            "saved file carries the postings")
+    return run
 
 
-def pruned_stages(index, b, t):
-    """Host-clock ms of each stage of one forced-pruned batch, called as
-    ``batch_query(plan="pruned")`` calls them, with a sync after the
-    device work; with the batch's hits and candidate list."""
+DEVICE_STAGES = ("stage_ms", "probe_b3_ms", "decode_b4_ms", "estimator_ms",
+                 "pack_ms", "fetch_ms", "unpack_hits_ms")
+
+
+def device_stages(index, b, t):
+    """One forced-pruned batch on the device route, stage by stage as
+    ``pruned_batch_device`` runs it: CUDA events between the stages on the
+    device timeline (staging upload, B3, B4 with its prefix sum, the o1
+    popcount and estimator, the hit-word packing, the fetch), then the
+    host clock for unpacking the words and ``mask_to_hits``. Returns
+    (ms per stage, host ms of the query sketch and of the planner probe,
+    hits)."""
+    arena = index.core.sketches
+    m = arena.num_records
+    t0 = time.perf_counter()
+    qp, hash_rows, bit_rows, _ = index._plan_queries(b)
+    t1 = time.perf_counter()
+    choose_plan(index._postings(), hash_rows, bit_rows, t, m, arena.capacity,
+                plan="pruned")
+    t2 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    ev[0].record()
+    dpost, x, sq = planner_device.stage_query_inputs(arena, qp, t,
+                                                     device=index.device)
+    ev[1].record()
+    qv, qt, qb, qs, thr = postings_merge.carve_query_blob(
+        sq.blob, gq=sq.gq, cq=sq.cq, w=sq.w)
+    pos, hit = postings_probe(dpost.keys, qv.reshape(-1))
+    ev[2].record()
+    kcap = block_decode(pos, hit, dpost.row_blocks, dpost.first, dpost.meta,
+                        dpost.off, dpost.payload, gq=sq.gq, cq=sq.cq, m=m)
+    ev[3].record()
+    o1 = postings_merge.bitmap_o1(x.buf, qb)
+    s = postings_merge.estimate_scores(kcap, o1, x.values, x.thresh, qv, qt,
+                                       qs)
+    ev[4].record()
+    words = postings_merge.pack_hit_words(s, thr)
+    ev[5].record()
+    words_h = to_numpy(words)
+    ev[6].record()
+    h0 = time.perf_counter()
+    hits = mask_to_hits(planner_device.unpack_hit_words(words_h, m))
+    h1 = time.perf_counter()
+    ev[6].synchronize()
+    ms = [ev[k].elapsed_time(ev[k + 1]) for k in range(6)] + [(h1 - h0) * 1e3]
+    return (dict(zip(DEVICE_STAGES, ms)),
+            {"sketch_ms": (t1 - t0) * 1e3, "probe_ms": (t2 - t1) * 1e3}, hits)
+
+
+def check_pruned(index, batches, run, hits_seen, topk_seen) -> dict:
+    """Hold the device route's answers against the dense route's (from the
+    query phase, already held against the numpy route), its raw scores
+    against B1's matrix, its postings against the host build, and run one
+    batch's middle under the sync-debug mode; then time its stages."""
+    post = run["post"]
+    require(postings_equal(run["eager_post"], post),
+            "eager (device-encoded) postings equal lazy (host) postings")
+    mirror = DevicePostings.from_postings(post, DEV)
+    require(all(torch.equal(a, b) for a, b in
+                zip(run["eager_dev_post"].arrays(), mirror.arrays()))
+            and run["eager_dev_post"].has_dense == mirror.has_dense,
+            "device-encoded mirror equals the mirror of the host postings")
+    arena = index.core.sketches
+    m = arena.num_records
+    x = arena.device_pack(index.device)
+    t0 = time.perf_counter()
+    fused_encode_postings(x.values, x.lengths, m=m, cap=x.capacity)
+    sync()
+    encode_s = time.perf_counter() - t0
+    out = {"phase": "pruned",
+           "postings": {**run["postings"], "lazy_equals_eager": True,
+                        "device_mirror_equal": True,
+                        "has_dense": mirror.has_dense,
+                        "mirror_bytes": mirror.nbytes(),
+                        "device_encode_s": encode_s}}
+
+    t_mid = THRESHOLDS[1]
+    require(all(np.array_equal(a, b) for a, b in
+                zip(run["auto_hits"], hits_seen[(0, t_mid)])),
+            "plan='auto' hits equal the dense route's")
+    lp = run["auto_plan"]
+    out["auto"] = {"threshold": t_mid, "path": lp.path, "hits": lp.hits,
+                   "blocks": lp.blocks, "tail_blocks": lp.tail_blocks,
+                   "tail_dense_blocks": lp.tail_dense_blocks,
+                   "est_dense": lp.est_dense, "est_pruned": lp.est_pruned,
+                   "ms": run["auto_ms"], "equals_dense": True}
+
+    for (i, t), got in run["forced"].items():
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(got, hits_seen[(i, t)])),
+                f"device-route hits of batch {i} at t={t} equal dense hits")
+    lat = run["forced_ms"]
+    out["forced"] = {"batches": len(lat), "ms_p50": pctl(lat, 50),
+                     "ms_p90": pctl(lat, 90), "ms_p99": pctl(lat, 99),
+                     "checked_pairs": len(run["forced"]),
+                     "equals_dense": True}
+
+    # The raw score matrix of batch 0 against B1's, bit for bit.
+    qp = gbkmv.sketch_query_batch(index.core, batches[0])
+    staged = planner_device.stage_query_inputs(arena, qp, device=index.device)
+    s = planner_device.pruned_scores(*staged)
+    dense = containment_matrix(qp, x, as_numpy=False)
+    require(torch.equal(s.view(torch.int32), dense.view(torch.int32)),
+            "device-route scores of batch 0 equal B1's dense matrix")
+
+    # Residency: the middle of one batch under the sync-debug mode.
+    staged = planner_device.stage_query_inputs(arena, qp, t_mid,
+                                               device=index.device)
+    sync()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        words = planner_device.fused_mask_words(*staged)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    require(all(np.array_equal(a, b) for a, b in zip(
+        mask_to_hits(planner_device.unpack_hit_words(words, m)),
+        hits_seen[(0, t_mid)])), "the sync-free middle answers as dense")
+    out["residency"] = {"sync_debug_mode": "error", "raised": False}
+
+    stage_rows, host_rows = [], []
+    for i in range(CHECK_BATCHES):
+        for t in THRESHOLDS:
+            stages, host, hits = device_stages(index, batches[i], t)
+            require(all(np.array_equal(a, b)
+                        for a, b in zip(hits, hits_seen[(i, t)])),
+                    f"staged device batch {i} at t={t} equals dense")
+            stage_rows.append(stages)
+            host_rows.append(host)
+    med = {k: float(np.median([r[k] for r in stage_rows]))
+           for k in DEVICE_STAGES}
+    hmed = {k: float(np.median([r[k] for r in host_rows]))
+            for k in host_rows[0]}
+    total = sum(med.values()) + sum(hmed.values())
+    out["breakdown"] = {"batches": len(stage_rows), **hmed, **med,
+                        "shares": {k: v / total for k, v in
+                                   {**hmed, **med}.items()}}
+
+    # topk_seen holds the dense top-k of the same queries, in order.
+    for (ids, sc, _), (dids, dsc) in zip(run["topk"], topk_seen):
+        require(np.array_equal(ids, dids)
+                and np.array_equal(sc.view(np.uint32), dsc.view(np.uint32)),
+                f"device pruned top-{TOPK} equals dense top-{TOPK}")
+    topk_ms = [r[2] for r in run["topk"]]
+    out["topk"] = {"k": TOPK, "queries": len(run["topk"]),
+                   "ms_p50": pctl(topk_ms, 50), "ms_p90": pctl(topk_ms, 90),
+                   "equals_dense": True}
+
+    require(postings_equal(run["reloaded_post"], post),
+            "reloaded postings equal")
+    for t in THRESHOLDS:
+        require(all(np.array_equal(a, b) for a, b in
+                    zip(run["reloaded_hits"][t], hits_seen[(0, t)])),
+                f"reloaded pruned hits at t={t}")
+    ids, sc, _ = run["topk"][0]
+    rids, rsc = run["reloaded_topk"]
+    require(np.array_equal(ids, rids) and np.array_equal(sc, rsc),
+            "reloaded pruned top-k")
+    out["save"] = {**run["save"], "identical_after_reload": True}
+    emit(out)
+    return out
+
+
+def phase_host_pruned(index, batches, topk_queries) -> dict:
+    """The planner's host route, driven directly as ``ShardedIndex`` drives
+    it off its device route: ``planner.pruned_batch``/``pruned_topk``
+    with ``index._pair_score_fn(qp)``, whose verify is B5."""
+    post = index._postings()
+    m = index.num_records
+    run = {"forced": [], "topk": []}
+    for i in range(CHECK_BATCHES):
+        qp, hash_rows, bit_rows, sizes = index._plan_queries(batches[i])
+        score_fn = index._pair_score_fn(qp)
+        for t in THRESHOLDS:
+            t0 = time.perf_counter()
+            ids, cands = pruned_batch(post, hash_rows, bit_rows, sizes, t,
+                                      score_fn)
+            ms = (time.perf_counter() - t0) * 1e3
+            run["forced"].append((i, t, ids, ms,
+                                  int(sum(len(c.rec_ids) for c in cands))))
+    for q in topk_queries[:GQ]:
+        qp, hash_rows, bit_rows, sizes = index._plan_queries([q])
+        t0 = time.perf_counter()
+        ids, sc = pruned_topk(post, hash_rows[0], bit_rows[0], int(sizes[0]),
+                              TOPK, index._pair_score_fn(qp), m)
+        run["topk"].append((ids, sc, (time.perf_counter() - t0) * 1e3))
+    return run
+
+
+HOST_STAGES = ("sketch_ms", "probe_ms", "candidates_ms", "upload_ms", "b5_ms",
+               "fetch_ms", "cut_ms")
+
+
+def host_stages(index, b, t):
+    """Host-clock ms of each stage of one batch on the host route, with a
+    sync after the device work; with the batch's hits and candidate list."""
     post = index._postings()
     s = index.core.sketches
     x = s.device_pack(index.device)
@@ -421,147 +730,50 @@ def pruned_stages(index, b, t):
         pos += n
     t7 = time.perf_counter()
     ms = np.diff([t0, t1, t2, t3, t4, t5, t6, t7]) * 1e3
-    return dict(zip(STAGES, ms.tolist())), hits, cand_rec, cand_q
+    return dict(zip(HOST_STAGES, ms.tolist())), hits, cand_rec, cand_q
 
 
-def phase_pruned(index, batch: RaggedBatch, budget: int, batches) -> dict:
-    """The planned route on the serving index, through the api alone:
-    postings built lazily and eagerly, plan="auto" on one batch, forced
-    plan="pruned" on CHECK_BATCHES batches at each t, pruned top-k, and a
-    save/load round trip carrying the postings. Records what the checks
-    in :func:`check_pruned` need; that runs after the launch counts are
-    read, so its comparisons are not counted."""
-    arena = index.core.sketches
-    require(arena._post is None, "no postings before the planned path")
-    t0 = time.perf_counter()
-    post = index._postings()
-    lazy_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eager = api.build("gbkmv", batch, budget, postings="eager")
-    sync()
-    eager_s = time.perf_counter() - t0
-    run = {"post": post, "eager_post": eager.core.sketches._post,
-           "postings": {
-               "nbytes": post.nbytes(), "keys": len(post.keys),
-               "tail_entries": post.tail.nnz,
-               "tail_blocks": post.tail.num_blocks,
-               "buf_entries": post.buf.nnz, "buf_blocks": post.buf.num_blocks,
-               "lazy_build_s": lazy_s, "eager_index_build_s": eager_s}}
-    del eager
-
-    t0 = time.perf_counter()
-    run["auto_hits"] = index.batch_query(batches[0], THRESHOLDS[1])
-    run["auto_ms"] = (time.perf_counter() - t0) * 1e3
-    run["auto_plan"] = index.last_plan
-
-    run["forced"] = []
-    for i in range(CHECK_BATCHES):
-        for t in THRESHOLDS:
-            t0 = time.perf_counter()
-            got = index.batch_query(batches[i], t, plan="pruned")
-            ms = (time.perf_counter() - t0) * 1e3
-            run["forced"].append((i, t, got, ms, index.last_plan.path,
-                                  int(sum(index.last_candidate_sizes))))
-
-    run["topk"] = []
-    for q in batches[0]:
-        t0 = time.perf_counter()
-        ids, sc = index.topk(q, TOPK, plan="pruned")
-        run["topk"].append((ids, sc, (time.perf_counter() - t0) * 1e3))
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "netflix_postings.npz")
-        t0 = time.perf_counter()
-        index.save(path)
-        save_s = time.perf_counter() - t0
-        with np.load(path) as f:
-            post_keys = sorted(k for k in f.files if k.startswith("post_"))
-        size = Path(path).stat().st_size
-        t0 = time.perf_counter()
-        again = api.load_index(path)
-        load_s = time.perf_counter() - t0
-    run["reloaded_post"] = again.core.sketches._post
-    run["reloaded_hits"] = {t: again.batch_query(batches[0], t, plan="pruned")
-                            for t in THRESHOLDS}
-    run["reloaded_topk"] = again.topk(batches[0][0], TOPK, plan="pruned")
-    run["save"] = {"file_bytes": size, "post_keys": len(post_keys),
-                   "save_s": save_s, "load_s": load_s}
-    require("post_blk_payload" in post_keys and "post_buf_blk_meta" in post_keys,
-            "saved file carries the postings")
-    return run
-
-
-def check_pruned(index, batches, run, hits_seen, topk_seen):
-    """Hold the planned route's answers against the dense route's (from
-    the query phase), time each stage of the forced batches, and emit the
-    phase line. Returns the candidate list (cand_rec, cand_q) of the
-    first batch at the middle threshold."""
-    post = run["post"]
-    require(postings_equal(run["eager_post"], post),
-            "eager postings equal lazy postings")
-    out = {"phase": "pruned",
-           "postings": {**run["postings"], "lazy_equals_eager": True}}
-
-    t_mid = THRESHOLDS[1]
-    require(all(np.array_equal(a, b) for a, b in
-                zip(run["auto_hits"], hits_seen[(0, t_mid)])),
-            "plan='auto' hits equal the dense route's")
-    lp = run["auto_plan"]
-    out["auto"] = {"threshold": t_mid, "path": lp.path, "hits": lp.hits,
-                   "blocks": lp.blocks, "tail_blocks": lp.tail_blocks,
-                   "tail_dense_blocks": lp.tail_dense_blocks,
-                   "est_dense": lp.est_dense, "est_pruned": lp.est_pruned,
-                   "ms": run["auto_ms"], "equals_dense": True}
-
+def check_host_pruned(index, batches, run, dev_run, hits_seen, topk_seen):
+    """The host route's answers against the dense route's and the device
+    route's; its stages timed on batch 0 at each t. Returns the candidate
+    list (cand_rec, cand_q) of batch 0 at the middle threshold."""
     forced, stage_rows = [], []
-    for i, t, got, ms, path, cands in run["forced"]:
-        require(path == "pruned", "forced pruned route")
-        require(all(np.array_equal(a, b)
-                    for a, b in zip(got, hits_seen[(i, t)])),
-                f"pruned hits of batch {i} at t={t} equal dense hits")
-        # The same batch again, stage by stage.
-        stages, hits, rec, qq = pruned_stages(index, batches[i], t)
-        require(all(np.array_equal(a, b) for a, b in zip(hits, got))
-                and len(rec) == cands,
-                f"staged batch {i} at t={t} equals the route")
-        if (i, t) == (0, t_mid):
-            cand_list = (rec, qq)
-        stage_rows.append(stages)
-        forced.append({"batch": i, "threshold": t, "candidates": cands,
-                       "hits": int(sum(len(h) for h in got)), "ms": ms,
-                       "candidates_ms": stages["candidates_ms"],
-                       "b5_ms": stages["b5_ms"]})
-    out["forced"] = forced
-    out["forced_ms_p50"] = pctl([r["ms"] for r in forced], 50)
-    out["forced_equal_dense"] = len(forced)
-    med = {k: float(np.median([r[k] for r in stage_rows])) for k in STAGES}
-    total = sum(med.values())
-    out["breakdown"] = {"batches": len(stage_rows), **med,
-                        "candidates_share": med["candidates_ms"] / total,
-                        "b5_share": med["b5_ms"] / total}
-
-    # topk_seen holds the dense top-k of batches[:CHECK_BATCHES], in order.
-    for (ids, sc, _), (dids, dsc) in zip(run["topk"], topk_seen):
-        require(np.array_equal(ids, dids)
-                and np.array_equal(sc.view(np.uint32), dsc.view(np.uint32)),
-                f"pruned top-{TOPK} equals dense top-{TOPK}")
-    topk_ms = [r[2] for r in run["topk"]]
-    out["topk"] = {"k": TOPK, "queries": len(run["topk"]),
-                   "ms_p50": pctl(topk_ms, 50), "ms_p90": pctl(topk_ms, 90),
-                   "equals_dense": True}
-
-    require(postings_equal(run["reloaded_post"], post),
-            "reloaded postings equal")
-    for t in THRESHOLDS:
+    for i, t, got, ms, cands in run["forced"]:
         require(all(np.array_equal(a, b) for a, b in
-                    zip(run["reloaded_hits"][t], hits_seen[(0, t)])),
-                f"reloaded pruned hits at t={t}")
-    ids, sc, _ = run["topk"][0]
-    rids, rsc = run["reloaded_topk"]
-    require(np.array_equal(ids, rids) and np.array_equal(sc, rsc),
-            "reloaded pruned top-k")
-    out["save"] = {**run["save"], "identical_after_reload": True}
-    emit(out)
+                    zip(got, hits_seen[(i, t)])),
+                f"host-route hits of batch {i} at t={t} equal dense hits")
+        require(all(np.array_equal(a, b) for a, b in
+                    zip(got, dev_run["forced"][(i, t)])),
+                f"host-route hits of batch {i} at t={t} equal device hits")
+        forced.append({"batch": i, "threshold": t, "candidates": cands,
+                       "hits": int(sum(len(h) for h in got)), "ms": ms})
+        if i == 0:
+            stages, hits, rec, qq = host_stages(index, batches[0], t)
+            require(all(np.array_equal(a, b) for a, b in zip(hits, got))
+                    and len(rec) == cands,
+                    f"staged host batch 0 at t={t} equals the route")
+            stage_rows.append(stages)
+            if t == THRESHOLDS[1]:
+                cand_list = (rec, qq)
+    for (ids, sc, _), (dids, dsc), (vids, vsc, _) in zip(
+            run["topk"], topk_seen, dev_run["topk"]):
+        require(np.array_equal(ids, dids) and np.array_equal(ids, vids)
+                and np.array_equal(sc.view(np.uint32), dsc.view(np.uint32))
+                and np.array_equal(sc.view(np.uint32), vsc.view(np.uint32)),
+                f"host pruned top-{TOPK} equals dense and device top-{TOPK}")
+    med = {k: float(np.median([r[k] for r in stage_rows]))
+           for k in HOST_STAGES}
+    total = sum(med.values())
+    topk_ms = [r[2] for r in run["topk"]]
+    emit({"phase": "host_pruned", "forced": forced,
+          "forced_ms_p50": pctl([r["ms"] for r in forced], 50),
+          "forced_equal_dense_and_device": len(forced),
+          "breakdown": {"batches": len(stage_rows), **med,
+                        "candidates_share": med["candidates_ms"] / total,
+                        "b5_share": med["b5_ms"] / total},
+          "topk": {"k": TOPK, "queries": len(run["topk"]),
+                   "ms_p50": pctl(topk_ms, 50),
+                   "equals_dense_and_device": True}})
     return cand_list
 
 
@@ -586,7 +798,7 @@ def _edge_score_inputs():
     qt = np.asarray([50, PAD - 1, 50], np.uint32)
     qs = np.asarray([4, 7, 0], np.int32)
     cols = [to_tensor(a) for a in (xv, xt, xb, qv, qt, qb)]
-    return [c.cuda() for c in cols] + [torch.from_numpy(qs).cuda()]
+    return [c.to(DEV) for c in cols] + [torch.from_numpy(qs).to(DEV)]
 
 
 def _edge_pair_cases():
@@ -599,15 +811,90 @@ def _edge_pair_cases():
     wide = list(base)
     for i, n in ((2, 9), (5, 3)):
         wide[i] = to_tensor(rng.integers(0, 2**32, size=(n, 3), dtype=np.uint64)
-                            .astype(np.uint32)).cuda()
+                            .astype(np.uint32)).to(DEV)
     rep = list(base)
     xv, qv = to_numpy(base[0]), to_numpy(base[3])
     xv[2, :4] = [5, 9, 9, 30]
     qv[1, :6] = [0, 5, 5, 9, 30, 31]
-    rep[0], rep[3] = to_tensor(xv).cuda(), to_tensor(qv).cuda()
-    rec = torch.arange(9, dtype=torch.int32).repeat_interleave(3).cuda()
-    q = torch.arange(3, dtype=torch.int32).repeat(9).cuda()
+    rep[0], rep[3] = to_tensor(xv).to(DEV), to_tensor(qv).to(DEV)
+    rec = torch.arange(9, dtype=torch.int32).repeat_interleave(3).to(DEV)
+    q = torch.arange(3, dtype=torch.int32).repeat(9).to(DEV)
     return [base, wide, rep], rec, q
+
+
+def _edge_probe_cases():
+    """B3 edge cases: no keys; queries below the first key, above the last,
+    equal to PAD, and repeated."""
+    keys = np.asarray([1000, 2000, 3000, 2**32 - 3], np.uint32)
+    q = np.asarray([0, 999, 1000, 1500, 2000, 2000, 3000, 3001, 2**32 - 3,
+                    2**32 - 2, PAD, PAD], np.uint32)
+    return [(to_tensor(k).to(DEV), to_tensor(q).to(DEV))
+            for k in (keys, keys[:0], keys[:1])]
+
+
+def _synthetic_postings() -> DevicePostings:
+    """Hand-made tail rows, one key each (10..17): one-entry blocks,
+    repeated ids (bw = 0), a 31-bit delta, widths that straddle words (7,
+    13, 25), a row of three blocks and a dense-bitmap block."""
+    rows = [np.asarray([5]), np.asarray([7, 7, 7, 7]),
+            np.asarray([1, 2, 3, 3 + 2**30, 4 + 2**30 + 5]),
+            np.cumsum(np.full(40, 100)), np.cumsum(np.full(90, 5000)),
+            np.cumsum(np.arange(1, 61) % 7 + 2**24),
+            np.cumsum(np.arange(300) % 3),
+            40 + np.cumsum(1 + (np.arange(160) % 4 == 0))]
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    tail = encode_store(offsets, np.concatenate(rows).astype(np.int32))
+    require({0, 31}.issubset(set(((tail.meta >> 8) & 31).tolist()))
+            and bool(np.any((tail.meta >> 13) & 1)),
+            "synthetic blocks cover bw 0, bw 31 and a dense block")
+    empty = encode_store(np.zeros(1, np.int64), np.zeros(0, np.int32))
+    post = PostingsIndex(keys=np.arange(10, 18, dtype=np.uint32), tail=tail,
+                         buf=empty, num_records=600_000, tau=np.uint32(0))
+    return DevicePostings.from_postings(post, DEV)
+
+
+def _task_blocks(pos, hit, row_blocks):
+    """The block id of every decode task of a probe, in task order."""
+    cum = postings_merge.task_prefix(pos, hit, row_blocks).long()
+    nblk = torch.diff(cum, prepend=cum.new_zeros(1))
+    rs = row_blocks.long()[pos.long().clamp(0, max(row_blocks.numel() - 2, 0))]
+    lane = torch.repeat_interleave(torch.arange(pos.numel(), device=pos.device),
+                                   nblk)
+    t = torch.arange(lane.numel(), device=pos.device)
+    return rs[lane] + t - (cum[lane] - nblk[lane])
+
+
+def _dense_store_check() -> dict:
+    """B4 against its plain version on an index whose tail has dense-bitmap
+    blocks: the reference's recipe (tests/test_device_pipeline.py:40,
+    ``dense_corpus``), r = 2, budget 20,000, eager postings."""
+    rng = np.random.default_rng(7)
+    recs = []
+    for _ in range(600):
+        base = rng.choice(3000, size=rng.integers(2, 5), replace=False) + 100
+        common = [c for c in range(10) if rng.random() < 0.85]
+        recs.append(np.unique(np.concatenate([common, base]).astype(np.int64)))
+    index = api.build("gbkmv", recs, 20_000, r=2, postings="eager")
+    dpost = index.core.sketches.device_postings(DEV)
+    require(dpost.has_dense, "the dense-block store has dense blocks")
+    queries = [r[: max(2, len(r) // 2)] for r in recs[:GQ]]
+    qp = gbkmv.sketch_query_batch(index.core, queries).to(DEV)
+    gq, cq = qp.values.shape
+    pos, hit = postings_probe(dpost.keys, qp.values.reshape(-1))
+    args = (pos, hit, dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
+            dpost.payload)
+    got = block_decode(*args, gq=gq, cq=cq, m=index.num_records)
+    require(torch.equal(got, ref.kcount_ref(*args, gq=gq, cq=cq,
+                                            m=index.num_records)),
+            "block_decode kernel equals plain version on dense blocks")
+    blk = _task_blocks(pos, hit, dpost.row_blocks)
+    dense_tasks = int(((dpost.meta[blk] >> 13) & 1).sum())
+    require(dense_tasks > 0, "the dense-block batch decodes dense blocks")
+    for a, b in zip(index.batch_query(queries, 0.5, plan="pruned"),
+                    index.batch_query(queries, 0.5, plan="dense")):
+        require(np.array_equal(a, b), "dense-block index: pruned = dense")
+    return {"records": index.num_records, "tasks": int(blk.numel()),
+            "dense_tasks": dense_tasks, "equal": True}
 
 
 def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
@@ -622,8 +909,8 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
                       np.int64)
     ids = np.concatenate([tail, edge])
     ids32 = to_tensor((ids.astype(np.uint64) & np.uint64(0xFFFFFFFF))
-                      .astype(np.uint32)).cuda()
-    ids64 = torch.from_numpy(ids).cuda()
+                      .astype(np.uint32)).to(DEV)
+    ids64 = torch.from_numpy(ids).to(DEV)
     err = 0
     for tau in (0, int(index.core.tau), int(PAD)):
         h, keep = hash_threshold(ids32, 0, tau)
@@ -648,8 +935,8 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     }
 
     # -- B1 at the main path's shapes plus edge cases --------------------------
-    x = index.core.sketches.device_pack("cuda")
-    qp = gbkmv.sketch_query_batch(index.core, query_batch).to("cuda")
+    x = index.core.sketches.device_pack(DEV)
+    qp = gbkmv.sketch_query_batch(index.core, query_batch).to(DEV)
     args = (x.values, x.thresh, x.buf, qp.values, qp.thresh, qp.buf, qp.sizes)
     got = gbkmv_score(*args)
     want = ref.gbkmv_score_ref(*args)
@@ -700,8 +987,8 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
         "ops": 2 * live + m * gq * (2 * w + 12),
     }
     # -- B5 at a real batch's candidate list plus edge cases --------------------
-    rec = torch.from_numpy(cand_rec).cuda()
-    qq = torch.from_numpy(cand_q).cuda()
+    rec = torch.from_numpy(cand_rec).to(DEV)
+    qq = torch.from_numpy(cand_q).to(DEV)
     pargs = args + (rec, qq)
     got = gather_score(*pargs)
     want = ref.gather_score_ref(*pargs)
@@ -736,12 +1023,109 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
         "bytes": 32 * sectors + 4 * (p * (1 + w + 3) + gq * (cq + 2 + w)),
         "ops": 2 * int((nx + nq).sum()) + p * (2 * w + 12),
     }
+    # -- B3 at batch 0's flat query hashes, plus edge cases ---------------------
+    dpost = index.core.sketches.device_postings(DEV)
+    q_flat = qp.values.reshape(-1)
+    pos, hit = postings_probe(dpost.keys, q_flat)
+    wpos, whit = ref.postings_probe_ref(dpost.keys, q_flat)
+    sync()
+    require(torch.equal(pos, wpos) and torch.equal(hit, whit),
+            "postings_probe kernel equals plain version at batch 0")
+    err = float((pos - wpos).abs().max())
+    for keys, qs in _edge_probe_cases():
+        require(all(torch.equal(a, b) for a, b in zip(
+            postings_probe(keys, qs), ref.postings_probe_ref(keys, qs))),
+            "postings_probe kernel equals plain version on edge cases")
+    n, u = q_flat.numel(), dpost.keys.numel()
+    sign = -(1 << 31)       # u32 order as int32: flip the sign bit
+    ks, qs = dpost.keys ^ sign, q_flat ^ sign
+    require(torch.equal(torch.searchsorted(ks, qs).to(torch.int32), pos),
+            "torch.searchsorted gives the kernel's pos")
+    lib = library.library()
+    pos_o, hit_o = torch.empty_like(pos), torch.empty_like(hit)
+    results["postings_probe"] = {
+        "shape": [n, u], "max_abs_err": err, "parity": "exact",
+        "ms": cuda_ms(lambda: postings_probe(dpost.keys, q_flat), 50),
+        "kernel_graph_ms": graph_ms(lambda st: lib.postings_probe_launch(
+            dpost.keys.data_ptr(), u, q_flat.data_ptr(), n, pos_o.data_ptr(),
+            hit_o.data_ptr(), st)),
+        "plain_ms": cuda_ms(lambda: ref.postings_probe_ref(dpost.keys,
+                                                           q_flat), 20),
+        "library_ms": cuda_ms(lambda: torch.searchsorted(ks, qs), 50),
+        "library_note": "torch.searchsorted on the sign-flipped int32 keys "
+                        "and queries: pos only, no hit flag",
+        "hit_lanes": int(hit.sum()),
+        # Keys and queries read once, pos (4 B) and hit (1 B) written once;
+        # a binary search does about log2(U + 1) compares per query.
+        "bytes": 4 * u + 4 * n + 4 * n + n,
+        "ops": n * max(1, int(np.ceil(np.log2(u + 1)))),
+    }
+
+    # -- B4 at batch 0, on a store with dense blocks, on synthetic blocks ------
+    kargs = (pos, hit, dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
+             dpost.payload)
+    kw = {"gq": gq, "cq": cq, "m": m}
+    kc = block_decode(*kargs, **kw)
+    want = ref.kcount_ref(*kargs, **kw)
+    sync()
+    require(torch.equal(kc, want),
+            "block_decode kernel equals plain version at batch 0")
+    err = float((kc - want).abs().max())
+    dense_check = _dense_store_check()
+    syn = _synthetic_postings()
+    lanes = to_tensor(np.asarray([10, 11, 12, 13, 14, 15, 16, 17,
+                                  17, 12, 99, PAD, 10, 13, PAD, 16],
+                                 np.uint32)).to(DEV)
+    spos, shit = postings_probe(syn.keys, lanes)
+    sargs = (spos, shit, syn.row_blocks, syn.first, syn.meta, syn.off,
+             syn.payload)
+    require(torch.equal(block_decode(*sargs, gq=2, cq=8, m=600_000),
+                        ref.kcount_ref(*sargs, gq=2, cq=8, m=600_000)),
+            "block_decode kernel equals plain version on synthetic blocks "
+            "(one entry, bw = 0, bw = 31, straddled words, a dense block)")
+    blk = _task_blocks(pos, hit, dpost.row_blocks)
+    words = int((dpost.off[blk + 1] - dpost.off[blk]).sum())
+    entries = int(((dpost.meta[blk] & 0x7F) + 1).sum())
+    hit_lanes = int(hit.sum())
+    cum = postings_merge.task_prefix(pos, hit, dpost.row_blocks)
+    kc_o = torch.zeros_like(kc)
+    results["block_decode"] = {
+        "shape": [n, int(blk.numel()), m, gq], "max_abs_err": err,
+        "parity": "exact",
+        "ms": cuda_ms(lambda: block_decode(*kargs, **kw), 50),
+        "kernel_graph_ms": graph_ms(lambda st: lib.block_decode_launch(
+            pos.data_ptr(), cum.data_ptr(), n, dpost.row_blocks.data_ptr(),
+            dpost.first.data_ptr(), dpost.meta.data_ptr(),
+            dpost.off.data_ptr(), dpost.first.numel(),
+            dpost.payload.data_ptr(), dpost.payload.numel(), gq, cq, m,
+            kc_o.data_ptr(), st)),
+        "plain_ms": cuda_ms(lambda: ref.kcount_ref(*kargs, **kw), 5),
+        # The wrapper zeroes the [m, gq] counts before the launch.
+        "zero_fill_ms": cuda_ms(lambda: torch.zeros(
+            (m, gq), dtype=torch.int32, device=DEV), 50),
+        "tasks": int(blk.numel()), "entries": entries,
+        "payload_words": words, "hit_lanes": hit_lanes,
+        "dense_store": dense_check,
+        # The touched blocks' payload words and headers (first, meta, off),
+        # pos and the prefix sum per lane, the row start of each hit lane,
+        # and one 4-B atomic update per decoded entry.
+        "bytes": 4 * words + 12 * int(blk.numel()) + 8 * n + 4 * hit_lanes
+        + 4 * entries,
+        # Per entry: the unpack (shift, or, mask), its share of the
+        # five-step scan, the id and the atomic: about 16 operations.
+        "ops": 16 * entries,
+    }
     emit({"phase": "parity", **{k: {"shape": v["shape"], "parity": "exact",
                                     "max_abs_err": v["max_abs_err"]}
                                 for k, v in results.items()},
           "gbkmv_score_load": {k: results["gbkmv_score"][k] for k in (
               "live_x_per_pair", "row_values_read_per_record", "row_bytes")}})
     return results
+
+
+# Keys of a parity result that the kernels line reports on their own.
+_ENTRY_KEYS = ("shape", "max_abs_err", "parity", "ms", "plain_ms", "bytes",
+               "ops", "library_ms", "library_note")
 
 
 def main() -> int:
@@ -778,15 +1162,23 @@ def main() -> int:
     phase_save(index, batches, hits_seen, topk_seen, topk_queries)
     launches = {"dense": read()}
     reset()
-    run = phase_pruned(index, batch, budget, batches)
+    run = phase_pruned(index, batch, budget, batches, topk_queries)
     launches["pruned"] = read()
-    cand_rec, cand_q = check_pruned(index, batches, run, hits_seen, topk_seen)
+    check_pruned(index, batches, run, hits_seen, topk_seen)
+    reset()
+    host_run = phase_host_pruned(index, batches, topk_queries)
+    launches["host_pruned"] = read()
+    cand_rec, cand_q = check_host_pruned(index, batches, host_run, run,
+                                         hits_seen, topk_seen)
     for path, names in PATH_KERNELS.items():
         for name in names:
             require(launches[path][name] > 0,
                     f"{name} launched on the {path} path")
-    require(launches["dense"]["gather_score"] == 0,
-            "the dense path verified no candidates")
+    for path, name in (("dense", "gather_score"), ("pruned", "gather_score"),
+                       ("host_pruned", "postings_probe"),
+                       ("host_pruned", "block_decode")):
+        require(launches[path][name] == 0,
+                f"{name} not launched on the {path} path")
 
     results = phase_parity(index, batch, tail_mask, batches[0], cand_rec,
                            cand_q)
@@ -803,9 +1195,12 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-            "library_note": "no single PyTorch call computes this function",
+            "library_ms": r.get("library_ms"),
+            "library_note": r.get(
+                "library_note",
+                "no single PyTorch call computes this function"),
             "shape": r["shape"], "bytes": r["bytes"], "ops": r["ops"],
+            "detail": {k: v for k, v in r.items() if k not in _ENTRY_KEYS},
             "card": card["nvidia_smi"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,20 +8,29 @@
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no card a default call raises. ``backend="torch"``
-scores with the hand kernels on CUDA (B1 for the dense sweep, B5 for the
-pruned verify; their plain versions on CPU), ``"numpy"`` with the host
-estimator. ``build_backend="torch"`` runs the fused device build (the B2
-kernel), ``"numpy"`` the host build.
+scores with the hand kernels on CUDA (their plain versions on CPU
+tensors), ``"numpy"`` with the host estimator. ``build_backend="torch"``
+runs the fused device build (the B2 kernel), ``"numpy"`` the host build.
 
 ``query``/``batch_query``/``topk`` take ``plan`` ∈ {"auto", "dense",
 "pruned"} as the reference does: "auto" asks the planner to pick the
 cheaper route per batch from the postings' selectivity, the others force
-one. Both routes return the same answers. The pruned route is the
-reference's host filter-and-verify (candidates from the block postings on
-the host, one B5 call to score them); the device pruned pipeline arrives
-with ROADMAP.md slice 4. Postings are built on the first planned query,
-or at build time with ``postings="eager"``. ``explain=``, ``insert`` and
-``windowed=True`` raise ``NotImplementedError`` until their slices land.
+one. Every route returns the same answers.
+
+- The dense route scores every record (kernel B1).
+- The pruned route with ``backend="torch"`` is the device pipeline
+  (``planner/device.py``): postings probe (kernel B3), block decode and
+  K∩ scatter (kernel B4), the closed-form estimator, and packed hit words
+  or a top-k, with one staged upload and one fetch per batch.
+- The pruned route with ``backend="numpy"`` is the reference's host
+  filter-and-verify: candidates from the block postings on the host,
+  scored in one call (the host twin of kernel B5).
+
+Postings are built on the first planned query, or at build time with
+``postings="eager"``; after a device build (``build_backend="torch"``)
+the eager tail postings are encoded where the columns live. ``explain=``,
+``insert`` and ``windowed=True`` raise ``NotImplementedError`` until their
+slices land.
 
 Index files use the reference's npz keys, so a file saved by either
 package loads in the other, postings included: a save writes the blocked
@@ -45,6 +54,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.gather_score import score_pairs
 from repro_torch.planner import (BlockStore, PostingsIndex, QueryPlan,
                                  from_flat, threshold_hits_packed, topk_select)
+from repro_torch.planner import device as planner_device
+from repro_torch.planner.postings import build_postings_device
 
 # ---------------------------------------------------------------------------
 # Engine registry
@@ -250,9 +261,17 @@ class GBKMVEngine:
         idx = GBKMVApiIndex(core, budget=int(budget), backend=backend,
                             device=device)
         if postings == "eager":
-            # From the host columns; device-built columns are pinned to the
-            # host once and stay resident on the card.
-            idx.core.sketches.postings()
+            arena = idx.core.sketches
+            if build_backend == "torch":
+                # Encoded where the columns live, the tail mirror adopted
+                # as it is; the columns are pinned to the host once and
+                # stay resident on the device.
+                post, dpost = build_postings_device(arena)
+                arena.ensure_host()
+                arena.install_postings(post)
+                arena.adopt_device_postings(dpost)
+            else:
+                arena.postings()
         return idx
 
     @classmethod
@@ -273,13 +292,15 @@ class GBKMVApiIndex:
 
     ``query``/``batch_query``/``topk`` take ``plan`` ∈ {"auto", "dense",
     "pruned"}. The postings live on the arena, built on the first planned
-    query. The pruned route is the host filter-and-verify: candidates from
-    the postings, scored in one ``score_pairs`` call (B5 on the card).
+    query. The pruned route runs the device pipeline for
+    ``backend="torch"`` and the host filter-and-verify for ``"numpy"``.
     """
 
     engine = "gbkmv"
     last_plan: QueryPlan | None = None     # the latest planned batch's route
-    last_candidate_sizes: list | None = None   # per query, pruned route
+    # Per query, on the host pruned route; None on the device route, which
+    # makes no candidate sets.
+    last_candidate_sizes: list | None = None
 
     def __init__(self, core: gbkmv_mod.GBKMVIndex, budget: int | None,
                  backend: str = "torch", device="cuda"):
@@ -373,6 +394,10 @@ class GBKMVApiIndex:
         self.last_plan = decision
         if decision.path == "dense":
             return self._dense_batch_query(queries, threshold, qp=qp)
+        if self.backend == "torch":
+            self.last_candidate_sizes = None
+            return planner_device.pruned_batch_device(
+                s, qp, threshold, device=self.device, plan=decision)
         ids, cands = planner.pruned_batch(
             self._postings(), hash_rows, bit_rows, sizes, threshold,
             self._pair_score_fn(qp))
@@ -383,8 +408,10 @@ class GBKMVApiIndex:
              plan: str = "auto") -> tuple[np.ndarray, np.ndarray]:
         """(record ids, scores) of the k highest estimated containments:
         score descending, ties by ascending record id. The pruned route
-        scores candidates in bound order with the running k-th score as
-        the moving threshold, and ranks exactly as the dense sweep."""
+        ranks exactly as the dense sweep: on the device it takes the top k
+        of the pipeline's score matrix; on the host it scores candidates
+        in bound order with the running k-th score as the moving
+        threshold."""
         plan = planner.normalize_plan(plan)
         s = self.core.sketches
         if plan == "dense" or int(k) <= 0 or s.num_records == 0:
@@ -401,6 +428,9 @@ class GBKMVApiIndex:
         else:
             self.last_plan = QueryPlan("pruned", np.nan, np.nan, 0,
                                        "forced topk")
+        if self.backend == "torch":
+            return planner_device.pruned_topk_device(
+                s, qp, k, device=self.device)[0]
         return planner.pruned_topk(
             self._postings(), hash_rows[0], bit_rows[0], int(sizes[0]), k,
             self._pair_score_fn(qp), s.num_records)

@@ -12,6 +12,10 @@ host crossing is one two-int read (the largest per-row count, which fixes
 the pack width, and τ); every per-element quantity stays on the device.
 Bit-identical to the host ``pack_csr`` pipeline: same hashes, same τ
 rule, same order, same capacity-overflow thresholds.
+
+:func:`fused_encode_postings` is the device path of the postings build:
+it block-compresses the tail postings from the packed columns where they
+live, array-equal to the host encoder, with one three-int host read.
 """
 
 from __future__ import annotations
@@ -172,3 +176,119 @@ def fused_build_columns(batch, tail_mask, budget: int, *, seed: int = 0,
                           buf=to_tensor(bitmaps).to(device),
                           sizes=torch.from_numpy(sizes).to(device))
     return pack, np.uint32(tau_h)
+
+
+# ---------------------------------------------------------------------------
+# Device-path postings encode (packed columns → blocked tail store)
+# ---------------------------------------------------------------------------
+
+
+def _encode_tail_device(values, lengths, *, m: int, cap: int):
+    """Block-compress the tail postings on the columns' device.
+
+    The device twin of ``planner/postings.py::build_postings``'s tail
+    (``_row_pairs``, ``_csr_from_pairs``, ``encode_store``), as the
+    reference's ``_encode_tail_device`` spells it: the same (hash asc,
+    record asc) order, 128-entry blocks and delta-bitpack / dense-bitmap
+    rule, bit for bit, as scatter arithmetic over the flattened [m·cap]
+    slot stream. Every output is sized n+1 = m·cap+1 with slot n as the
+    scatter trash; the true sizes (#keys U, #blocks NB, #payload words P)
+    are the returned ``sizes`` vector. Arithmetic is int64 on u32 values;
+    a payload word sums disjoint bit fields, so the sum is the OR.
+    """
+    from repro_torch.planner.postings import BLOCK, DENSE_MAX_WORDS
+
+    dev = values.device
+    n = m * cap
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    rec = iota // cap
+    live = (iota % cap) < lengths.long()[rec]
+    h = torch.where(live, as_u64(values.reshape(-1)), _PAD)
+    r = torch.where(live, rec, m)
+    # (hash asc, record asc): a stable sort by record, then by hash. Dead
+    # (PAD, m) slots sort to the tail.
+    o1 = torch.sort(r, stable=True).indices
+    order = o1[torch.sort(h[o1], stable=True).indices]
+    hs, rsrt = h[order], r[order]
+    valid = iota < live.sum()
+
+    def shifted(x):
+        return torch.cat([x[:1], x[:-1]])
+
+    newkey = valid & ((iota == 0) | (hs != shifted(hs)))
+    key_id = torch.cumsum(newkey, 0) - 1
+    posr = iota - torch.cummax(torch.where(newkey, iota, -1), 0).values
+    bstart = valid & (posr % BLOCK == 0)
+    blk_id = torch.cumsum(bstart, 0) - 1
+    posb = iota - torch.cummax(torch.where(bstart, iota, -1), 0).values
+    delta_ok = valid & (posb > 0)
+    d = torch.where(delta_ok, rsrt - shifted(rsrt), 0)
+
+    # -- per-block headers (slot n = trash) ---------------------------------
+    def slots(fill=0):
+        return torch.full((n + 1,), fill, dtype=torch.int64, device=dev)
+
+    tgt = torch.where(valid, blk_id, n)
+    first_b = slots().scatter_(0, torch.where(bstart, blk_id, n), rsrt)
+    last_b = slots().scatter_reduce_(0, tgt, torch.where(valid, rsrt, 0),
+                                     "amax")
+    cnt_b = slots().scatter_add_(0, tgt, torch.ones_like(tgt))
+    md_b = slots().scatter_reduce_(0, tgt, d, "amax")
+    mind_b = slots(1 << 30).scatter_reduce_(
+        0, torch.where(delta_ok, blk_id, n), d, "amin")
+    bw = slots()
+    for k in range(31):
+        bw += (md_b >> k) > 0
+    w_sparse = ((cnt_b - 1) * bw + 31) // 32
+    w_dense = (last_b - first_b + 1 + 31) // 32
+    dense = (mind_b >= 1) & (w_dense < w_sparse) & (w_dense <= DENSE_MAX_WORDS)
+    words_b = torch.where(dense, w_dense, w_sparse)
+    words_b[n] = 0
+    off_b = torch.cat([slots()[:1], torch.cumsum(words_b[:n], 0)])
+    meta_b = ((cnt_b - 1) & 0x7F) | (bw << 8) | (dense.long() << 13)
+
+    # -- payload scatters ---------------------------------------------------
+    blk = blk_id.clamp(0, n)
+    b_dense, b_bw, b_off, b_first = dense[blk], bw[blk], off_b[blk], first_b[blk]
+    payload = slots()
+    sel = delta_ok & ~b_dense & (b_bw > 0)
+    bitpos = (posb - 1) * b_bw
+    wloc = b_off + (bitpos >> 5)
+    sh = bitpos & 31
+    lo = (d << sh) & 0xFFFFFFFF
+    hi = torch.where(sh > 0, d >> ((32 - sh) & 31), 0)
+    payload.scatter_add_(0, torch.where(sel, wloc, n), torch.where(sel, lo, 0))
+    payload.scatter_add_(0, torch.where(sel, wloc + 1, n),
+                         torch.where(sel, hi, 0))
+    dsel = valid & b_dense
+    bit = rsrt - b_first
+    payload.scatter_add_(0, torch.where(dsel, b_off + (bit >> 5), n),
+                         torch.where(dsel, torch.ones_like(bit) << (bit & 31), 0))
+
+    # -- keyspace -------------------------------------------------------------
+    keys_b = slots().scatter_(0, torch.where(newkey, key_id, n), hs)
+    nblk_k = slots().scatter_add_(0, torch.where(bstart, key_id, n),
+                                  torch.ones_like(key_id))
+    row_blocks_b = torch.cat([slots()[:1], torch.cumsum(nblk_k[:n], 0)])
+    nb = bstart.sum()
+    sizes = torch.stack([newkey.sum(), nb, off_b[nb]])
+    return (as_bits(keys_b), row_blocks_b.to(torch.int32),
+            first_b.to(torch.int32), last_b.to(torch.int32),
+            meta_b.to(torch.int32), off_b.to(torch.int32),
+            as_bits(payload & 0xFFFFFFFF), sizes)
+
+
+def fused_encode_postings(values, lengths, *, m: int, cap: int) -> dict:
+    """The blocked tail postings of packed columns, encoded where the
+    columns live: the arrays of a
+    :class:`repro_torch.core.arena.DevicePostings` (int32, u32 as bit
+    patterns), cut to their true sizes. The one host read is the
+    three-int sizes vector. The cuts are copies, so the m·cap-sized
+    encode buffers are freed."""
+    keys, rb, first, last, meta, off, payload, sizes = _encode_tail_device(
+        values, lengths, m=m, cap=cap)
+    u, nb, p = sizes.tolist()
+    cut = {"keys": keys[:u], "row_blocks": rb[:u + 1], "first": first[:nb],
+           "last": last[:nb], "meta": meta[:nb], "off": off[:nb + 1],
+           "payload": payload[:p]}
+    return {name: t.clone() for name, t in cut.items()}

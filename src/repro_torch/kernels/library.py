@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("hash_threshold.cu", "gbkmv_score.cu", "gather_score.cu")
+SOURCES = ("hash_threshold.cu", "gbkmv_score.cu", "gather_score.cu",
+           "postings_probe.cu", "block_decode.cu")
 HEADERS = ("gbkmv_pair.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -40,6 +41,9 @@ _SIGNATURES = {
                             _I32, _I32, _P, _P], _I32),
     "gather_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                              _I32, _I32, _P, _P, _I64, _P, _P], _I32),
+    "postings_probe_launch": ([_P, _I64, _P, _I64, _P, _P, _P], _I32),
+    "block_decode_launch": ([_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _I64,
+                             _I32, _I32, _I64, _P, _P], _I32),
     "repro_cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 

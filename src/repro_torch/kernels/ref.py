@@ -11,10 +11,15 @@ import torch
 
 from repro_torch.core.estimators import (buffer_intersection,
                                          gkmv_pair_estimate, popcount)
-from repro_torch.core.hashing import TWO32, as_u64, hash_u32
+from repro_torch.core.hashing import PAD, TWO32, as_u64, hash_u32
+from repro_torch.planner.postings import BLOCK, DENSE_MAX_WORDS
 
 # Bound on the [rows, C, Cq] equality intermediate of one chunk.
 _CHUNK_ELEMS = 1 << 26
+
+# Slack the reference pads the payload with, so a decode's word reads
+# (clipped to the end) see zeros past the last body.
+DECODE_WINDOW = 128
 
 
 def gbkmv_score_ref(x_values, x_thresh, x_buf,
@@ -99,3 +104,128 @@ def hash_threshold_ref(ids, seed: int, tau: int | None):
     global-τ filter; ``kept`` is None when ``tau`` is None."""
     h = hash_u32(ids, seed=seed)
     return h, None if tau is None else h <= int(tau)
+
+
+# ---------------------------------------------------------------------------
+# Pruned pipeline: postings probe (B3), block decode and K∩ scatter (B4)
+# ---------------------------------------------------------------------------
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 with two's-complement wrap (the reference's int32
+    arithmetic)."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def postings_probe_ref(keys, q_flat) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pos i32[n], hit bool[n]) of each query hash against the sorted key
+    column, as the reference's ``_probe_jnp``: pos = #keys < q, hit = q is
+    a key and not PAD. ``keys`` u32[U], ``q_flat`` u32[n] (int32 bits)."""
+    u = keys.shape[0]
+    ku, qu = as_u64(keys), as_u64(q_flat)
+    pos = torch.searchsorted(ku, qu).to(torch.int32)
+    if u == 0:
+        return pos, torch.zeros(q_flat.shape, dtype=torch.bool,
+                                device=q_flat.device)
+    safe = pos.clamp(0, u - 1).long()
+    hit = (pos < u) & (ku[safe] == qu) & (qu != int(PAD))
+    return pos, hit
+
+
+def decode_sparse_ref(first, off, bw, cnt, payload) -> torch.Tensor:
+    """i32[tb, BLOCK] ids of sparse blocks, as ``_decode_sparse_jnp``:
+    unpack the count-1 deltas of ``bw`` bits (two straddled words joined
+    by shift-or), zero the lanes ≥ cnt−1, prefix-sum from ``first``.
+    Lanes ≥ cnt carry garbage the caller masks. first/off/bw/cnt i32[tb];
+    payload u32[P] (int32 bits), padded by the caller; reads clip to it."""
+    pmax = payload.shape[0] - 1
+    pay = as_u64(payload)
+    p = torch.arange(BLOCK - 1, dtype=torch.int64,
+                     device=first.device)[None, :]               # [1, 127]
+    bitpos = p * bw.long()[:, None]
+    w = off.long()[:, None] + (bitpos >> 5)
+    w0 = pay[w.clamp(0, pmax)]
+    w1 = pay[(w + 1).clamp(0, pmax)]
+    sh = bitpos & 31
+    lo = w0 >> sh
+    hi = torch.where(sh > 0, (w1 << ((32 - sh) & 31)) & 0xFFFFFFFF, 0)
+    bwl = bw.long()[:, None]
+    mask = torch.where(bwl > 0, (1 << bwl) - 1, 0)
+    v = (lo | hi) & mask
+    v = torch.where(p < cnt.long()[:, None] - 1, v, 0)
+    zeros = torch.zeros((first.shape[0], 1), dtype=torch.int64,
+                        device=first.device)
+    return _wrap32(first.long()[:, None]
+                   + torch.cat([zeros, torch.cumsum(v, 1)], 1))
+
+
+def decode_dense_ref(first, off, wcnt, payload, *, m: int) -> torch.Tensor:
+    """i32[n, BLOCK] set-bit ids of dense-bitmap blocks, as
+    ``_decode_dense_jnp``: the bits of the first ``wcnt`` body words in
+    rank order; lanes past a block's population (or its 128th set bit)
+    carry the sentinel ``m``."""
+    n = first.shape[0]
+    pmax = payload.shape[0] - 1
+    dev = first.device
+    win = torch.arange(DENSE_MAX_WORDS, dtype=torch.int64, device=dev)[None, :]
+    words = as_u64(payload)[(off.long()[:, None] + win).clamp(0, pmax)]
+    words = torch.where(win < wcnt.long()[:, None], words, 0)
+    bits = ((words[:, :, None] >> torch.arange(32, device=dev)) & 1
+            ).reshape(n, -1)                                     # [n, DW*32]
+    rank = torch.cumsum(bits, 1)
+    col = torch.where((bits == 1) & (rank <= BLOCK), rank - 1, BLOCK)
+    j = torch.arange(DENSE_MAX_WORDS * 32, dtype=torch.int64, device=dev)
+    vals = first.long()[:, None] + j[None, :]
+    out = torch.full((n, BLOCK + 1), m, dtype=torch.int64, device=dev)
+    out.scatter_(1, col, vals)       # every column < BLOCK is set once
+    return out[:, :BLOCK].to(torch.int32)
+
+
+def kcount_ref(pos, hit, row_blocks, first, meta, off, payload, *,
+               gq: int, cq: int, m: int) -> torch.Tensor:
+    """i32[m, gq] K∩ counts: the block-task expand, both decode streams
+    and the scatter of the reference's ``_pipeline_scores``, over all
+    tasks at once (this plain version reads the task count on the host).
+
+    Each hit lane (query hash ``lane`` of query ``lane // cq``) expands to
+    its key's blocks; every decoded record id adds one to its
+    (record, query) cell. ``pos``/``hit`` come from the probe; the block
+    arrays are a :class:`DevicePostings`' (int32, u32 as bit patterns).
+    """
+    dev = pos.device
+    kflat = torch.zeros(m * gq, dtype=torch.int64, device=dev)
+    u, nb = row_blocks.shape[0] - 1, first.shape[0]
+    if pos.numel() == 0 or nb == 0:
+        return kflat.view(m, gq).to(torch.int32)
+    pos_c = pos.long().clamp(0, max(u - 1, 0))
+    rs = torch.where(hit, row_blocks.long()[pos_c], 0)
+    re = torch.where(hit, row_blocks.long()[pos_c + 1], 0)
+    nblk = re - rs
+    cum = torch.cumsum(nblk, 0)
+    total = int(cum[-1])
+    t = torch.arange(total, dtype=torch.int64, device=dev)
+    lane = torch.searchsorted(cum, t, right=True)
+    blk = rs[lane] + t - (cum[lane] - nblk[lane])
+    task_q = lane // cq
+    meta_u = as_u64(meta)[blk]
+    t_first, t_off = first[blk], off[blk]
+    t_cnt = (meta_u & 0x7F) + 1
+    t_bw = (meta_u >> 8) & 0x1F
+    dense = ((meta_u >> 13) & 1) == 1
+    pay = torch.cat([payload, payload.new_zeros(DECODE_WINDOW)])
+
+    lanes = torch.arange(BLOCK, device=dev)[None, :]
+    ids = decode_sparse_ref(t_first, t_off, t_bw, t_cnt, pay).long()
+    ids = torch.where((lanes < t_cnt[:, None]) & ~dense[:, None], ids, m)
+    parts = [(ids, task_q)]
+    if bool(dense.any()):
+        d = torch.nonzero(dense)[:, 0]
+        d_blk = blk[d]
+        wcnt = off[(d_blk + 1).clamp_max(nb)] - off[d_blk]
+        parts.append((decode_dense_ref(first[d_blk], off[d_blk], wcnt, pay,
+                                       m=m).long(), task_q[d]))
+    for ids, q in parts:
+        ok = (ids >= 0) & (ids < m)
+        lin = (ids * gq + q[:, None])[ok]
+        kflat += torch.bincount(lin, minlength=m * gq)
+    return kflat.view(m, gq).to(torch.int32)

@@ -1,14 +1,18 @@
 """Candidate-pruning query planner: filter-and-verify over block postings
-(port of ``repro.planner``, host side).
+(port of ``repro.planner``).
 
-    postings.py  block-compressed hash/buffer-bit postings
+    postings.py  block-compressed hash/buffer-bit postings (host build,
+                 and the device encode of the tail store)
     prune.py     threshold-aware candidate generation with per-block
                  header skipping, and the dense route's threshold cut
-    plan.py      per-batch dense-vs-pruned cost decision and executors
-                 (pruned_batch, pruned_topk)
+    plan.py      per-batch dense-vs-pruned cost decision and the host
+                 executors (pruned_batch, pruned_topk)
+    device.py    the device pruned pipeline over a SketchArena (staged
+                 queries, packed hit words, top-k); imported as a module
 
-The ragged verify kernel (B5) lives with the other kernels in
-:mod:`repro_torch.kernels.gather_score`.
+The kernels live in :mod:`repro_torch.kernels`: the ragged verify (B5) in
+``gather_score``, the probe (B3) and block decode (B4) in
+``postings_merge``.
 """
 
 from repro_torch.planner.plan import (PLAN_MODES, QueryPlan, choose_plan,

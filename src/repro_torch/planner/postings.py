@@ -352,6 +352,38 @@ def build_postings(sketches: PackedSketches) -> PostingsIndex:
                      m, tau)
 
 
+def build_postings_device(sketches: PackedSketches):
+    """``(PostingsIndex, DevicePostings)`` with the tail store encoded where
+    the columns live (:func:`repro_torch.kernels.hash_threshold.
+    fused_encode_postings`), array-equal to :func:`build_postings`.
+
+    For device-built columns the tail is bit-packed on the card and its
+    mirror adopted as it is; the host :class:`PostingsIndex` is copied back
+    once per build, for the host planner and for save. Buffer postings are
+    encoded on the host as always: they never go to the device.
+    """
+    from repro_torch.core.arena import _DENSE_KIND, DevicePostings
+    from repro_torch.kernels.hash_threshold import fused_encode_postings
+
+    m = sketches.num_records
+    dev = fused_encode_postings(sketches.values, sketches.lengths, m=m,
+                                cap=sketches.capacity)
+    keys = to_numpy(dev["keys"])
+    meta = to_numpy(dev["meta"])
+    tail = BlockStore(
+        row_blocks=dev["row_blocks"].cpu().numpy(),
+        first=dev["first"].cpu().numpy(), last=dev["last"].cpu().numpy(),
+        meta=meta, off=dev["off"].cpu().numpy().astype(np.int64),
+        payload=to_numpy(dev["payload"]))
+    buf_offsets, buf_rec_ids = _buf_csr(to_numpy(sketches.buf))
+    post = PostingsIndex(
+        keys=keys, tail=tail, buf=encode_store(buf_offsets, buf_rec_ids),
+        num_records=m, tau=keys[-1] if len(keys) else np.uint32(0))
+    dpost = DevicePostings(**dev, num_records=m,
+                           has_dense=bool(np.any(meta & _DENSE_KIND)))
+    return post, dpost
+
+
 def _stores_equal(a: BlockStore, b: BlockStore) -> bool:
     return all(np.array_equal(getattr(a, f), getattr(b, f))
                for f in ("row_blocks", "first", "last", "meta", "off",

@@ -14,11 +14,15 @@ import torch
 
 from repro_torch import api
 from repro_torch.core import gbkmv
+from repro_torch.core.arena import DevicePostings
 from repro_torch.core.hashing import PAD, as_u64, to_numpy, to_tensor
 from repro_torch.data.synth import generate_dataset, make_query_workload
 from repro_torch.kernels import gather_score as gs_mod
 from repro_torch.kernels import gbkmv_score as score_mod, ops, ref
+from repro_torch.kernels import postings_merge as pm
 from repro_torch.kernels.hash_threshold import hash_threshold
+from repro_torch.planner import device as planner_device
+from repro_torch.planner import postings as P
 
 pytestmark = pytest.mark.cuda
 
@@ -202,14 +206,18 @@ def test_card_pruned_route_answers_like_cpu(cuda_device, tmp_path):
     card = api.build("gbkmv", recs, budget, postings="eager")
     cpu = api.build("gbkmv", recs, budget, device="cpu")
     assert card.core.sketches.device_pack(cuda_device).device.type == "cuda"
-    before = gs_mod.gather_score.launches
+    counters = (pm.postings_probe, pm.block_decode, gs_mod.gather_score)
+    before = [c.launches for c in counters]
     for t in (0.3, 0.5, 0.9):
         got = card.batch_query(queries, t, plan="pruned")
+        assert card.last_candidate_sizes is None     # the device route
         for a, b, c in zip(got, cpu.batch_query(queries, t, plan="pruned"),
                            cpu.batch_query(queries, t, plan="dense")):
             np.testing.assert_array_equal(a, b)
             np.testing.assert_array_equal(a, c)
-    assert gs_mod.gather_score.launches == before + 3
+    # One probe and one decode per batch; no host verify.
+    assert [c.launches for c in counters] == [before[0] + 3, before[1] + 3,
+                                              before[2]]
     for t in (0.3, 0.9):
         for a, b in zip(card.batch_query(queries, t),
                         cpu.batch_query(queries, t, plan="dense")):
@@ -224,3 +232,164 @@ def test_card_pruned_route_answers_like_cpu(cuda_device, tmp_path):
     for a, b in zip(back.batch_query(queries, 0.5, plan="pruned"),
                     card.batch_query(queries, 0.5, plan="pruned")):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# B3 and B4: the device pruned pipeline
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("u", [0, 1, 700, 5000])
+def test_probe_kernel_matches_plain(cuda_device, u):
+    rng = np.random.default_rng(u + 1)
+    keys = np.unique(rng.integers(1000, 2**32 - 1000, size=u,
+                                  dtype=np.uint64)).astype(np.uint32)
+    q = rng.integers(0, 2**32, size=3000, dtype=np.uint64).astype(np.uint32)
+    extra = [0, 999, 2**32 - 2, PAD, PAD]
+    if u:
+        extra += [keys[0], keys[-1], keys[u // 2], keys[u // 2],
+                  keys[0] - 1, keys[-1] + 1] + list(keys[::7])
+    q = np.concatenate([q, np.asarray(extra, np.uint32)])
+    k, qt = to_tensor(keys).to(cuda_device), to_tensor(q).to(cuda_device)
+    before = pm.postings_probe.launches
+    pos, hit = pm.postings_probe(k, qt)
+    assert pm.postings_probe.launches == before + (1 if u else 0)
+    wpos, whit = ref.postings_probe_ref(k, qt)
+    assert torch.equal(pos, wpos) and torch.equal(hit, whit)
+    assert bool(hit.any()) == bool(u)
+    empty = qt[:0]
+    assert pm.postings_probe(k, empty)[0].numel() == 0
+    assert pm.postings_probe.launches == before + (1 if u else 0)
+
+
+def _synthetic_postings(device) -> DevicePostings:
+    """Hand-made tail rows (one key each): one-entry blocks, repeated ids
+    (bw = 0), a 31-bit delta, widths that straddle words (7, 13, 25), a
+    row of three blocks and a dense-bitmap block."""
+    rows = [np.asarray([5]), np.asarray([7, 7, 7, 7]),
+            np.asarray([1, 2, 3, 3 + 2**30, 4 + 2**30 + 5]),
+            np.cumsum(np.full(40, 100)), np.cumsum(np.full(90, 5000)),
+            np.cumsum(np.arange(1, 61) % 7 + 2**24),
+            np.cumsum(np.arange(300) % 3),
+            40 + np.cumsum(1 + (np.arange(160) % 4 == 0))]
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    tail = P.encode_store(offsets, np.concatenate(rows).astype(np.int32))
+    post = P.PostingsIndex(
+        keys=np.arange(10, 10 + len(rows), dtype=np.uint32), tail=tail,
+        buf=P.encode_store(np.zeros(1, np.int64), np.zeros(0, np.int32)),
+        num_records=600_000, tau=np.uint32(0))
+    return DevicePostings.from_postings(post, device)
+
+
+def _kcount_both(dpost, q_flat, gq, cq, m):
+    pos, hit = pm.postings_probe(dpost.keys, q_flat)
+    args = (pos, hit, dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
+            dpost.payload)
+    before = pm.block_decode.launches
+    got = pm.block_decode(*args, gq=gq, cq=cq, m=m)
+    assert pm.block_decode.launches == before + 1
+    return got, ref.kcount_ref(*args, gq=gq, cq=cq, m=m)
+
+
+def test_block_decode_kernel_matches_plain_on_synthetic_blocks(cuda_device):
+    dpost = _synthetic_postings(cuda_device)
+    assert dpost.has_dense
+    # Two queries of 8 lanes: every key, one twice, a miss and PAD.
+    lanes = np.asarray([10, 11, 12, 13, 14, 15, 16, 17,
+                        17, 12, 99, PAD, 10, 13, PAD, 16], np.uint32)
+    got, want = _kcount_both(dpost, to_tensor(lanes).to(cuda_device),
+                             2, 8, 600_000)
+    assert torch.equal(got, want)
+    assert int(got.sum()) > 700          # ids past m were dropped, not all
+
+
+@pytest.mark.parametrize("corpus", ["netflix_like", "dense_blocks"])
+def test_block_decode_kernel_matches_plain_on_an_index(cuda_device, corpus):
+    if corpus == "dense_blocks":
+        rng = np.random.default_rng(7)
+        recs = []
+        for _ in range(600):
+            base = rng.choice(3000, size=rng.integers(2, 5),
+                              replace=False) + 100
+            common = [c for c in range(10) if rng.random() < 0.85]
+            recs.append(np.unique(np.concatenate([common, base])))
+        index = api.build("gbkmv", recs, 20_000, r=2, postings="eager")
+        queries = [r[: max(2, len(r) // 2)] for r in recs[:16]]
+    else:
+        recs = generate_dataset(m=4000, n_elems=3000, alpha_freq=1.14,
+                                alpha_size=2.5, size_min=5, size_max=80,
+                                seed=3)
+        index = api.build("gbkmv", recs, int(0.15 * sum(map(len, recs))),
+                          postings="eager")
+        queries = make_query_workload(recs, 16, seed=2)
+    dpost = index.core.sketches.device_postings(cuda_device)
+    assert dpost.has_dense == (corpus == "dense_blocks")
+    qp = gbkmv.sketch_query_batch(index.core, queries).to(cuda_device)
+    gq, cq = qp.values.shape
+    got, want = _kcount_both(dpost, qp.values.reshape(-1), gq, cq,
+                             index.num_records)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+    # Pruned answers equal the dense route's on the card.
+    for t in (0.3, 0.7):
+        for a, b in zip(index.batch_query(queries, t, plan="pruned"),
+                        index.batch_query(queries, t, plan="dense")):
+            np.testing.assert_array_equal(a, b)
+    for q in queries[:3]:
+        for x, y in zip(index.topk(q, 9, plan="pruned"),
+                        index.topk(q, 9, plan="dense")):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_device_encoded_postings_equal_host_postings(cuda_device):
+    recs = generate_dataset(m=3000, n_elems=4000, alpha_freq=1.14,
+                            alpha_size=4.95, size_min=10, size_max=300,
+                            seed=11)
+    budget = int(0.1 * sum(len(r) for r in recs))
+    card = api.build("gbkmv", recs, budget, postings="eager")
+    arena = card.core.sketches
+    dpost = arena._dev_post
+    assert dpost is not None and dpost.device.type == "cuda"
+    host = P.build_postings(arena)
+    assert P.postings_equal(arena._post, host)
+    mirror = DevicePostings.from_postings(host, cuda_device)
+    for a, b in zip(dpost.arrays(), mirror.arrays()):
+        assert torch.equal(a, b)
+    assert dpost.has_dense == mirror.has_dense
+
+
+def test_pipeline_middle_makes_no_host_sync(cuda_device):
+    recs = generate_dataset(m=2000, n_elems=3000, alpha_freq=1.14,
+                            alpha_size=2.5, size_min=5, size_max=80, seed=3)
+    index = api.build("gbkmv", recs, int(0.15 * sum(map(len, recs))),
+                      postings="eager")
+    queries = make_query_workload(recs, 16, seed=2)
+    arena = index.core.sketches
+    qp = gbkmv.sketch_query_batch(index.core, queries)
+    staged = planner_device.stage_query_inputs(arena, qp, 0.5,
+                                               device=cuda_device)
+    planner_device.fused_mask_words(*staged)                 # warm-up
+    outs = []
+    for head in ("scores", "words", "topk"):
+        staged = planner_device.stage_query_inputs(arena, qp, 0.5,
+                                                   device=cuda_device)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if head == "scores":
+                outs.append(planner_device.pruned_scores(*staged))
+            elif head == "words":
+                outs.append(planner_device.fused_mask_words(*staged))
+            else:
+                outs.append(planner_device.fused_topk_scores(*staged, k=10))
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    s, words, (vals, ids) = outs
+    dense = torch.from_numpy(index.batch_scores(queries))
+    assert torch.equal(s.cpu(), dense)
+    mask = planner_device.unpack_hit_words(words, index.num_records)
+    assert np.array_equal(mask, dense.numpy() >= np.float32(0.5))
+    for g, q in enumerate(queries[:4]):
+        di, ds = index.topk(q, 10, plan="dense")
+        assert np.array_equal(ids[g].cpu().numpy(), di)
+        assert np.array_equal(vals[g].cpu().numpy(), ds)

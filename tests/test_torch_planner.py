@@ -134,17 +134,29 @@ def test_auto_plan_follows_calibration(corpus, ref_index, port_index,
     got = planner.choose_plan(port_index._postings(), ph, pb, 0.7,
                               s.num_records, s.capacity)
     assert got.path == "pruned"
-    for t in THRESHOLDS:
-        got = port_index.batch_query(queries, t)
-        want = ref_index.batch_query(queries, t)
-        assert port_index.last_plan.path == ref_index.last_plan.path == \
-            "pruned"
-        assert port_index.last_candidate_sizes == \
-            ref_index.last_candidate_sizes
-        dense = port_index.batch_query(queries, t, plan="dense")
-        for a, b, c in zip(got, want, dense):
-            np.testing.assert_array_equal(a, b)
-            np.testing.assert_array_equal(a, c)
+    # backend="torch" takes the device route, as the reference's "jnp"
+    # does: neither makes candidate sets. "numpy" takes the host route.
+    recs, budget, _ = corpus
+    ref_device = ref_api.get_engine("gbkmv").build(recs, budget,
+                                                   backend="jnp")
+    for backend, ref in (("torch", ref_device), ("numpy", ref_index)):
+        port_index.backend = backend
+        try:
+            for t in THRESHOLDS:
+                got = port_index.batch_query(queries, t)
+                want = ref.batch_query(queries, t)
+                assert port_index.last_plan.path == ref.last_plan.path == \
+                    "pruned"
+                assert port_index.last_candidate_sizes == \
+                    ref.last_candidate_sizes
+                assert (ref.last_candidate_sizes is None) == \
+                    (backend == "torch")
+                dense = port_index.batch_query(queries, t, plan="dense")
+                for a, b, c in zip(got, want, dense):
+                    np.testing.assert_array_equal(a, b)
+                    np.testing.assert_array_equal(a, c)
+        finally:
+            port_index.backend = "torch"
 
 
 @pytest.mark.parametrize("t", (0.0,) + THRESHOLDS)
@@ -222,7 +234,10 @@ def test_pruned_topk_matches_reference(corpus, ref_index, port_index, chunk):
 def test_api_planned_routes_match_reference(corpus, backend):
     recs, budget, queries = corpus
     port = api.build("gbkmv", recs, budget, backend=backend, device="cpu")
-    ref = ref_api.get_engine("gbkmv").build(recs, budget, backend="numpy")
+    # The port's "torch" is the reference's device backend "jnp": the
+    # device route for pruned batches, with no candidate sets.
+    ref = ref_api.get_engine("gbkmv").build(
+        recs, budget, backend="jnp" if backend == "torch" else "numpy")
     for t in THRESHOLDS:
         for plan in ("auto", "pruned"):
             for a, b in zip(port.batch_query(queries, t, plan=plan),
@@ -232,6 +247,8 @@ def test_api_planned_routes_match_reference(corpus, backend):
             assert port.last_plan.hits == ref.last_plan.hits
             if plan == "pruned":
                 assert port.last_candidate_sizes == ref.last_candidate_sizes
+                assert (port.last_candidate_sizes is None) == \
+                    (backend == "torch")
         np.testing.assert_array_equal(port.query(queries[0], t, plan="pruned"),
                                       ref.query(queries[0], t, plan="pruned"))
     for q in queries:

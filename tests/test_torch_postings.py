@@ -164,7 +164,9 @@ def test_arena_postings_lazy_eager_and_bytes(corpus):
     post = arena._post
     assert post is not None and arena.postings() is post
     assert arena.postings_nbytes() == post.nbytes() > 0
-    assert lazy.nbytes() == arena.sketch_nbytes() + post.nbytes()
+    # The device route also mirrors the tail store, which nbytes counts.
+    assert lazy.nbytes() == (arena.sketch_nbytes() + post.nbytes()
+                             + arena._dev_post.nbytes())
 
     eager = api.build("gbkmv", recs, budget, device="cpu", postings="eager")
     assert eager.core.sketches._post is not None
