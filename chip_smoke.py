@@ -638,6 +638,11 @@ def check_pruned(index, batches, run, hits_seen, topk_seen) -> dict:
     out["breakdown"] = {"batches": len(stage_rows), **hmed, **med,
                         "shares": {k: v / total for k, v in
                                    {**hmed, **med}.items()}}
+    # Part of estimator_ms: the per-batch sign flip of the value and
+    # threshold columns that puts them in u32 order for torch.searchsorted.
+    sign = -(1 << 31)
+    out["breakdown"]["estimator_sign_flip_ms"] = cuda_ms(
+        lambda: (x.values ^ sign, x.thresh ^ sign), 20)
 
     # topk_seen holds the dense top-k of the same queries, in order.
     for (ids, sc, _), (dids, dsc) in zip(run["topk"], topk_seen):

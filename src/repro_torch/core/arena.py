@@ -32,13 +32,13 @@ class DevicePostings:
     exact buffer intersections o1 from the packed bitmaps already resident
     in the device pack (the dense kernel's popcount), so the buffer posting
     lists never need a mirror. u32 columns are int32 bit patterns; offsets
-    are int32 (payload words < 2³¹).
+    are int32 (payload words < 2³¹). The blocks' ``last`` ids stay on the
+    host store: only the host planner's block skip reads them.
     """
 
     keys: torch.Tensor        # u32 bits [U]   distinct retained hashes, asc
     row_blocks: torch.Tensor  # i32 [U+1]      block range per key
     first: torch.Tensor       # i32 [NB]       min record id per block
-    last: torch.Tensor        # i32 [NB]       max record id per block
     meta: torch.Tensor        # i32 [NB]       count-1 | bitwidth<<8 | kind<<13
     off: torch.Tensor         # i32 [NB+1]     payload word offsets
     payload: torch.Tensor     # u32 bits [P]   bitpacked block bodies
@@ -57,7 +57,7 @@ class DevicePostings:
 
         return cls(keys=to_tensor(post.keys).to(device),
                    row_blocks=put(t.row_blocks), first=put(t.first),
-                   last=put(t.last), meta=put(meta), off=put(t.off),
+                   meta=put(meta), off=put(t.off),
                    payload=to_tensor(t.payload).to(device),
                    num_records=post.num_records,
                    has_dense=bool(np.any(meta & _DENSE_KIND)))
@@ -67,8 +67,8 @@ class DevicePostings:
         return self.keys.device
 
     def arrays(self) -> tuple[torch.Tensor, ...]:
-        return (self.keys, self.row_blocks, self.first, self.last, self.meta,
-                self.off, self.payload)
+        return (self.keys, self.row_blocks, self.first, self.meta, self.off,
+                self.payload)
 
     def nbytes(self) -> int:
         return sum(a.numel() * a.element_size() for a in self.arrays())

@@ -281,10 +281,10 @@ def _encode_tail_device(values, lengths, *, m: int, cap: int):
 def fused_encode_postings(values, lengths, *, m: int, cap: int) -> dict:
     """The blocked tail postings of packed columns, encoded where the
     columns live: the arrays of a
-    :class:`repro_torch.core.arena.DevicePostings` (int32, u32 as bit
-    patterns), cut to their true sizes. The one host read is the
-    three-int sizes vector. The cuts are copies, so the m·cap-sized
-    encode buffers are freed."""
+    :class:`repro_torch.core.arena.DevicePostings` and the blocks' ``last``
+    ids (int32, u32 as bit patterns), cut to their true sizes. The one
+    host read is the three-int sizes vector. The cuts are copies, so the
+    m·cap-sized encode buffers are freed."""
     keys, rb, first, last, meta, off, payload, sizes = _encode_tail_device(
         values, lengths, m=m, cap=cap)
     u, nb, p = sizes.tolist()

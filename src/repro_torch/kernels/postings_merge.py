@@ -18,13 +18,11 @@ route without leaving the card, and without flat posting lists.
 
 The score matrix equals the dense sweep's bit for bit everywhere: inside
 the candidate set the counts are the dense kernel's counts, outside it
-K∩ = 0 and o1 is the same popcount. Three output heads share it:
-
-    fused_hit_words   score ≥ threshold, bit-packed along the record axis
-                      into u32 words (an 8× smaller fetch than a bool mask)
-    fused_topk        the k best records per query, score descending, ties
-                      by ascending id (the dense rule)
-    fused_scores      the raw f32[m, Gq] matrix (parity checks)
+K∩ = 0 and o1 is the same popcount. :func:`pack_hit_words` is the
+hit-word head (score ≥ threshold, bit-packed along the record axis into
+u32 words: an 8× smaller fetch than a bool mask); the planner's
+``repro_torch.planner.device`` applies it or a top-k to
+:func:`pipeline_scores`.
 
 On CUDA tensors the probe and the decode launch the kernels; on CPU
 tensors they run the plain versions in :mod:`repro_torch.kernels.ref`.
@@ -189,7 +187,7 @@ def estimate_scores(kcap, o1, x_values, x_thresh, q_values, q_thresh,
 
 
 # ---------------------------------------------------------------------------
-# The pipeline: probe → decode + K∩ scatter → estimator → output head
+# The pipeline: probe → decode + K∩ scatter → estimator; the hit-word head
 # ---------------------------------------------------------------------------
 
 
@@ -223,27 +221,9 @@ def pipeline_scores(dpost, x_values, x_thresh, x_buf, q_values, q_thresh,
                            q_sizes)
 
 
-def _scores(dpost, x, blob, gq, cq, w):
-    qv, qt, qb, qs, thr = carve_query_blob(blob, gq=gq, cq=cq, w=w)
-    return pipeline_scores(dpost, x.values, x.thresh, x.buf, qv, qt, qb,
-                           qs), thr
-
-
-def fused_scores(dpost, x, blob, *, gq: int, cq: int, w: int) -> torch.Tensor:
-    """f32[m, Gq] device score matrix (``x`` the device pack)."""
-    return _scores(dpost, x, blob, gq, cq, w)[0]
-
-
-def fused_hit_words(dpost, x, blob, *, gq: int, cq: int, w: int
-                    ) -> torch.Tensor:
-    """u32[ceil(m/32), Gq] packed hit words (int32 bits): bit ``i & 31`` of
-    word ``i >> 5`` is (score[i, g] ≥ thresholds[g]), with the float32-exact
-    per-query thresholds the staged blob carries."""
-    return pack_hit_words(*_scores(dpost, x, blob, gq, cq, w))
-
-
 def pack_hit_words(s: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
-    """The hit-word head: (s ≥ thresholds) packed 32 records to a word."""
+    """u32[ceil(m/32), Gq] packed hit words (int32 bits): bit ``i & 31`` of
+    word ``i >> 5`` is (s[i, g] ≥ thresholds[g])."""
     m, gq = s.shape
     mw = max(-(-m // 32), 1)
     hits = torch.zeros((mw * 32, gq), dtype=torch.int64, device=s.device)
@@ -251,19 +231,3 @@ def pack_hit_words(s: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
     weights = torch.ones(32, dtype=torch.int64, device=s.device) \
         << torch.arange(32, device=s.device)
     return as_bits((hits.view(mw, 32, gq) * weights[None, :, None]).sum(1))
-
-
-def fused_topk(dpost, x, blob, *, k: int, gq: int, cq: int, w: int
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(scores f32[Gq, k], ids i32[Gq, k]): per query the k highest scores,
-    descending, ties by ascending record id. Scores are ≥ 0, so their
-    float32 bits order as the values; one int64 key of (score bits,
-    m−1−id) per record makes every key distinct, and ``torch.topk`` of
-    distinct keys has one answer."""
-    s, _ = _scores(dpost, x, blob, gq, cq, w)
-    m = s.shape[0]
-    rev = torch.arange(m - 1, -1, -1, dtype=torch.int64, device=s.device)
-    key = (s.t().contiguous().view(torch.int32).long() << 32) | rev[None, :]
-    top = torch.topk(key, k, dim=1).values
-    ids = (m - 1 - (top & 0xFFFFFFFF)).to(torch.int32)
-    return (top >> 32).to(torch.int32).view(torch.float32), ids

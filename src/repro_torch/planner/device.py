@@ -10,16 +10,20 @@ it (sketching the queries, staging them: one copy) and after it (reading
 back the packed hit words or the [Gq, k] top-k pair, never an m×Gq
 matrix).
 
-The staging pool keeps one host blob per (Gq, capacity, buffer width),
-pinned for a CUDA device, filled in place through dtype views and copied
-in one ``non_blocking`` transfer; an event recorded after the copy orders
-the next refill of the same blob behind it. ``PIPELINE_STATS`` counts
-pipeline calls and the pool's allocations and reuses.
+The staging pool keeps one host blob per (capacity, buffer width) and
+device type, pinned for a CUDA device and sized for the largest batch
+seen: a batch fills a prefix of it in place through dtype views and
+copies that prefix in one ``non_blocking`` transfer, and an event
+recorded after the copy orders the next refill behind it. A larger batch
+replaces the blob, so the pool holds one blob per index layout whatever
+batch sizes arrive. ``PIPELINE_STATS`` counts pipeline calls and the
+pool's allocations and reuses.
 
-``stage_query_inputs`` / ``pruned_scores`` / ``fused_mask_words`` /
-``fused_topk_scores`` split at the transfer seams, so a test can run the
-middle under ``torch.cuda.set_sync_debug_mode("error")`` and show that it
-never waits on the card.
+``stage_query_inputs`` ends at the upload and the heads
+(``pruned_scores``, ``fused_mask_words``, ``fused_topk_scores``) before
+the fetch, so a test can run the middle under
+``torch.cuda.set_sync_debug_mode("error")`` and show that it never waits
+on the card.
 
 Left out against the reference: its power-of-two Gq/k buckets and its
 compile-signature counters, which serve a jit cache the port does not
@@ -66,33 +70,32 @@ class StagedQuery(NamedTuple):
     cq: int
     w: int
 
+    def carve(self):
+        """(values, thresh, buf, sizes, thresholds) views of the blob."""
+        return postings_merge.carve_query_blob(self.blob, gq=self.gq,
+                                               cq=self.cq, w=self.w)
+
 
 @dataclasses.dataclass
 class _Staging:
     host: torch.Tensor        # int32 host blob (pinned for CUDA)
-    views: dict               # numpy views: values/thresh/buf/sizes/thr
+    flat: np.ndarray          # the same memory, as uint32
+    gq: int                   # the most queries it holds
     copied: torch.cuda.Event | None = None   # after the last copy out
 
 
 def _staging(gq: int, cq: int, w: int, device: torch.device) -> _Staging:
-    key = (gq, cq, w, device.type)
+    key = (cq, w, device.type)
     st = _STAGING.get(key)
-    if st is not None:
+    if st is not None and st.copied is not None:
+        st.copied.synchronize()       # the last copy out of this blob is done
+    if st is not None and st.gq >= gq:
         PIPELINE_STATS["staging_reuse"] += 1
         return st
     PIPELINE_STATS["staging_alloc"] += 1
-    o0 = gq * cq
-    o1 = o0 + gq
-    o2 = o1 + gq * w
-    o3 = o2 + gq
-    host = torch.empty(o3 + gq, dtype=torch.int32,
+    host = torch.empty(gq * (cq + w + 3), dtype=torch.int32,
                        pin_memory=device.type == "cuda")
-    flat = host.numpy().view(np.uint32)
-    st = _Staging(host, {
-        "values": flat[:o0].reshape(gq, cq), "thresh": flat[o0:o1],
-        "buf": flat[o1:o2].reshape(gq, w), "sizes": flat[o2:o3].view(np.int32),
-        "thr": flat[o3:].view(np.float32)})
-    _STAGING[key] = st
+    st = _STAGING[key] = _Staging(host, host.numpy().view(np.uint32), gq)
     return st
 
 
@@ -107,19 +110,24 @@ def stage_query_inputs(arena: SketchArena, qp, thresholds=None, *, device):
     dpack = arena.device_pack(device)
     gq, cq, w = qp.num_records, qp.capacity, arena.buf_words
     st = _staging(gq, cq, w, device)
-    if st.copied is not None:
-        st.copied.synchronize()       # the last copy out of this blob is done
-    v = st.views
-    v["values"][:] = to_numpy(qp.values)
-    v["thresh"][:] = to_numpy(qp.thresh)
+    # The prefix in carve_query_blob's layout.
+    o0 = gq * cq
+    o1 = o0 + gq
+    o2 = o1 + gq * w
+    o3 = o2 + gq
+    flat = st.flat
+    flat[:o0].reshape(gq, cq)[:] = to_numpy(qp.values)
+    flat[o0:o1] = to_numpy(qp.thresh)
+    buf = flat[o1:o2].reshape(gq, w)
     wq = min(w, qp.buf_words)
-    v["buf"][:] = 0                   # align bitmap widths
-    v["buf"][:, :wq] = to_numpy(qp.buf)[:, :wq]
-    v["sizes"][:] = qp.sizes.cpu().numpy()
-    v["thr"][:] = np.inf
+    buf[:] = 0                        # align bitmap widths
+    buf[:, :wq] = to_numpy(qp.buf)[:, :wq]
+    flat[o2:o3].view(np.int32)[:] = qp.sizes.cpu().numpy()
+    thr = flat[o3:o3 + gq].view(np.float32)
+    thr[:] = np.inf
     if thresholds is not None:
-        v["thr"][:] = np.broadcast_to(prune.f32_threshold(thresholds), (gq,))
-    blob = st.host.to(device, non_blocking=True, copy=True)
+        thr[:] = np.broadcast_to(prune.f32_threshold(thresholds), (gq,))
+    blob = st.host[:o3 + gq].to(device, non_blocking=True, copy=True)
     if device.type == "cuda":
         st.copied = torch.cuda.Event()
         st.copied.record()
@@ -130,24 +138,31 @@ def pruned_scores(dpost, dpack, sq: StagedQuery) -> torch.Tensor:
     """f32[m, Gq] score matrix on the device: probe, decode, K∩ scatter,
     bitmap o1 and estimator over resident inputs, no host read."""
     PIPELINE_STATS["calls"] += 1
-    return postings_merge.fused_scores(dpost, dpack, sq.blob, gq=sq.gq,
-                                       cq=sq.cq, w=sq.w)
+    qv, qt, qb, qs, _ = sq.carve()
+    return postings_merge.pipeline_scores(dpost, dpack.values, dpack.thresh,
+                                          dpack.buf, qv, qt, qb, qs)
 
 
 def fused_mask_words(dpost, dpack, sq: StagedQuery) -> torch.Tensor:
     """u32[ceil(m/32), Gq] packed hit words on the device (int32 bits):
     the pipeline and the float32-exact cut the staged blob carries."""
-    PIPELINE_STATS["calls"] += 1
-    return postings_merge.fused_hit_words(dpost, dpack, sq.blob, gq=sq.gq,
-                                          cq=sq.cq, w=sq.w)
+    return postings_merge.pack_hit_words(pruned_scores(dpost, dpack, sq),
+                                         sq.carve()[4])
 
 
 def fused_topk_scores(dpost, dpack, sq: StagedQuery, *, k: int):
-    """(scores f32[Gq, k], ids i32[Gq, k]) on the device: the pipeline
-    with a top-k head (score descending, ties by ascending id)."""
-    PIPELINE_STATS["calls"] += 1
-    return postings_merge.fused_topk(dpost, dpack, sq.blob, k=k, gq=sq.gq,
-                                     cq=sq.cq, w=sq.w)
+    """(scores f32[Gq, k], ids i32[Gq, k]) on the device: per query the k
+    highest scores, descending, ties by ascending record id. Scores are
+    ≥ 0, so their float32 bits order as the values; one int64 key of
+    (score bits, m−1−id) per record makes every key distinct, and
+    ``torch.topk`` of distinct keys has one answer."""
+    s = pruned_scores(dpost, dpack, sq)
+    m = s.shape[0]
+    rev = torch.arange(m - 1, -1, -1, dtype=torch.int64, device=s.device)
+    key = (s.t().contiguous().view(torch.int32).long() << 32) | rev[None, :]
+    top = torch.topk(key, k, dim=1).values
+    ids = (m - 1 - (top & 0xFFFFFFFF)).to(torch.int32)
+    return (top >> 32).to(torch.int32).view(torch.float32), ids
 
 
 def unpack_hit_words(words, m: int) -> np.ndarray:

@@ -372,7 +372,7 @@ def build_postings_device(sketches: PackedSketches):
     meta = to_numpy(dev["meta"])
     tail = BlockStore(
         row_blocks=dev["row_blocks"].cpu().numpy(),
-        first=dev["first"].cpu().numpy(), last=dev["last"].cpu().numpy(),
+        first=dev["first"].cpu().numpy(), last=dev.pop("last").cpu().numpy(),
         meta=meta, off=dev["off"].cpu().numpy().astype(np.int64),
         payload=to_numpy(dev["payload"]))
     buf_offsets, buf_rec_ids = _buf_csr(to_numpy(sketches.buf))

@@ -329,9 +329,8 @@ def test_device_encode_matches_reference(which, indexes, dense_indexes):
     assert arena._dev_post.has_dense == mirror.has_dense == (which == "dense")
     rmirror = refi._sketch_pack().device_postings()
     for a, b in zip(mirror.arrays(), (rmirror.keys, rmirror.row_blocks,
-                                      rmirror.first, rmirror.last,
-                                      rmirror.meta, rmirror.off,
-                                      rmirror.payload)):
+                                      rmirror.first, rmirror.meta,
+                                      rmirror.off, rmirror.payload)):
         np.testing.assert_array_equal(a.numpy().view(np.asarray(b).dtype)
                                       if np.asarray(b).dtype == np.uint32
                                       else a.numpy(), np.asarray(b))
@@ -389,5 +388,13 @@ def test_staging_pool_reuses_one_buffer_per_shape(corpus, indexes):
     assert st["calls"] == 3
     assert st["staging_alloc"] == 1 and st["staging_reuse"] == 2
     assert st["staging_buffers"] == 1
-    port.batch_query(queries[:5], 0.5, plan="pruned")    # another shape
-    assert pd.pipeline_stats()["staging_buffers"] == 2
+    # A larger batch replaces the blob; a smaller one takes a prefix of it.
+    port.batch_query(queries[:5], 0.5, plan="pruned")
+    st = pd.pipeline_stats()
+    assert st["staging_buffers"] == 1 and st["staging_alloc"] == 2
+    got = port.batch_query(queries[:3], 0.5, plan="pruned")
+    st = pd.pipeline_stats()
+    assert st["staging_buffers"] == 1 and st["staging_alloc"] == 2
+    assert st["staging_reuse"] == 3
+    want = port.batch_query(queries[:3], 0.5, plan="dense")
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
