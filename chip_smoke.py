@@ -29,15 +29,29 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
   host_pruned  the planner's host route (planner.pruned_batch /
            pruned_topk with the index's B5 verify) on 4 batches at each t
            and 16 top-10s, equal to the dense and device routes; its stages
+  lm       LM serving (``repro_torch.launch.serve``'s functions): qwen3-0.6b
+           at full width, weights drawn from --seed on the card in bf16,
+           prefill of 4 × 4,096 tokens (causal attention by the B6 kernel)
+           and 16 greedy decode steps; prefill seconds and decode tokens/s;
+           the last-token logits against the same prefill with the plain
+           chunked attention on the card; decode after prefill against the
+           full forward at 2 × 256 (tests/test_archs_smoke.py): 2e-2 in f32;
+           in bf16, on the B6 route and on the plain route, an absolute
+           limit that a one-slot-early cache write (run as a control)
+           exceeds; a torch.profiler breakdown of one
+           prefill and three decode steps (device busy and idle share)
   parity   each kernel against its plain PyTorch version on the card, at
-           the main paths' shapes and on edge cases, exact equality (B4 also
-           on an index whose tail has dense-bitmap blocks and on synthetic
-           blocks)
+           the main paths' shapes and on edge cases: exact equality for
+           B1-B5 (B4 also on an index whose tail has dense-bitmap blocks and
+           on synthetic blocks), 2e-2 (bf16) and 2e-5 (f32) for B6, and
+           in bf16 a relative RMS error limit, with a truncated-output
+           control that exceeds it
   kernels  per kernel: launches on the main paths, error, times, bound
 
-Three main paths are counted: the dense path (build, query, save), the
-device pruned path (the pruned phase's api calls) and the host pruned path
-(the host_pruned phase's planner calls). The launch counts are set to 0
+Four main paths are counted: the dense path (build, query, save), the
+device pruned path (the pruned phase's api calls), the host pruned path
+(the host_pruned phase's planner calls) and the LM path (prefill and
+decode). The launch counts are set to 0
 just before each and read just after. The checks and stage-by-stage
 re-runs come after that read, and the parity phase's launches do not
 count either. Any failed check raises, so the script exits non-zero and
@@ -46,6 +60,8 @@ prints no result. The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -59,6 +75,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core import gbkmv  # noqa: E402
@@ -66,10 +84,12 @@ from repro_torch.core.arena import DevicePostings  # noqa: E402
 from repro_torch.core.estimators import (  # noqa: E402
     containment_matrix, gbkmv_containment_np)
 from repro_torch.core.hashing import PAD, as_u64, to_numpy, to_tensor  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.sketches import RaggedBatch  # noqa: E402
 from repro_torch.data.datasets import SPECS  # noqa: E402
 from repro_torch.data.synth import generate_dataset, make_query_workload  # noqa: E402
 from repro_torch.kernels import library, postings_merge, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gather_score import gather_score  # noqa: E402
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
@@ -80,6 +100,11 @@ from repro_torch.planner import (  # noqa: E402
     PostingsIndex, candidates_for, choose_plan, encode_store,
     f32_threshold, mask_to_hits, postings_equal, pruned_batch, pruned_topk,
     topk_select)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    causal_attention, causal_attention_plain)
 from repro_torch.planner import device as planner_device  # noqa: E402
 
 NUM_RECORDS = 480_189      # paper Table II, Netflix
@@ -91,6 +116,30 @@ THRESHOLDS = (0.5, 0.7, 0.9)
 TOPK = 10
 CHECK_BATCHES = 4
 
+# The LM path: qwen3-0.6b at full width. Batch and sequence are cut from
+# prefill_32k's 32 × 32,768 (its KV cache, ~120 GB, is over one card) to
+# 4 × 4,096, the seq of train_4k (src/repro/configs/shapes.py).
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH = 4
+LM_SEQ = 4_096
+LM_DECODE_STEPS = 16
+LM_CHECK_BATCH = 2          # the decode-after-prefill check's prompt
+LM_CHECK_SEQ = 256
+# Tolerances of tests/test_flash_kernel.py (and of
+# tests/test_archs_smoke.py's decode check).
+LM_TOL = 2e-2               # bf16
+F32_TOL = 2e-5              # f32
+# In bf16 at full depth, decode after prefill and the full forward round
+# their GEMMs at different shapes through 28 layers, and part by ~0.06
+# on either attention route, over LM_TOL. A sound decode is held to this
+# absolute limit instead; a decode whose cache write is one slot early
+# (the control the lm phase also runs) parts by ~0.6 and must exceed it.
+LM_BF16_DECODE_LIMIT = 0.2
+# B6 in bf16: the RMS of its error over the RMS of the plain version's
+# output. The two round the same f32 sums, so they differ in under 0.1 %
+# of outputs; an output truncated to bf16 instead of rounded reads ~4e-3.
+FLASH_BF16_REL_RMS = 2.0 ** -10
+
 # The card every phase runs on.
 DEV = torch.device("cuda")
 
@@ -98,6 +147,9 @@ DEV = torch.device("cuda")
 # float32 rate outside the tensor cores, used for the kernels' ALU work.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# The bf16 dense tensor-core rate (NVIDIA H100 SXM data sheet, without
+# sparsity): the bound of the attention kernel's two products.
+TENSOR_BF16_FLOPS = 989e12
 
 KERNELS = {
     "hash_threshold": {
@@ -120,15 +172,21 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/block_decode.cu",
         "replaces": "src/repro/kernels/postings_merge.py:177",
     },
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:40",
+    },
 }
 # The kernels each main path must launch: the dense route (build, query,
-# save), the device pruned route of the api, and the planner's host route.
+# save), the device pruned route of the api, the planner's host route, and
+# LM prefill + decode.
 PATH_KERNELS = {"dense": ("hash_threshold", "gbkmv_score"),
                 "pruned": ("postings_probe", "block_decode"),
-                "host_pruned": ("gather_score",)}
+                "host_pruned": ("gather_score",),
+                "lm": ("flash_attention",)}
 COUNTERS = {"hash_threshold": hash_threshold, "gbkmv_score": gbkmv_score,
             "gather_score": gather_score, "postings_probe": postings_probe,
-            "block_decode": block_decode}
+            "block_decode": block_decode, "flash_attention": flash_attention}
 
 
 def emit(obj) -> None:
@@ -1120,20 +1178,319 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
         # five-step scan, the id and the atomic: about 16 operations.
         "ops": 16 * entries,
     }
-    emit({"phase": "parity", **{k: {"shape": v["shape"], "parity": "exact",
+    results["flash_attention"] = parity_flash()
+    emit({"phase": "parity", **{k: {"shape": v["shape"],
+                                    "parity": v["parity"],
                                     "max_abs_err": v["max_abs_err"]}
                                 for k, v in results.items()},
+          "flash_attention_edge_cases": results["flash_attention"][
+              "edge_cases"],
           "gbkmv_score_load": {k: results["gbkmv_score"][k] for k in (
               "live_x_per_pair", "row_values_read_per_record", "row_bytes")}})
     return results
 
+def close(got, want, tol: float) -> tuple[float, bool]:
+    """(max |got - want|, whether |got - want| <= tol + tol·|want| at every
+    element), in f32: numpy's assert_allclose with rtol = atol = tol."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return float(err.max()), bool((err <= tol + tol * w.abs()).all())
+
+
+def lm_setup(seed: int) -> dict:
+    """qwen3-0.6b's weights and a 4 × 4,096 prompt drawn on the card from
+    ``seed``, then a warm-up outside the counted path: a 4 × 256 prefill
+    and two decode steps (cuBLAS handles, the kernels' first launches,
+    the decode's batch shapes)."""
+    cfg = registry.get_module(LM_ARCH).config()
+    sync()
+    t0 = time.perf_counter()
+    params, tokens = serve.make_inputs(cfg, batch=LM_BATCH, seq=LM_SEQ,
+                                       seed=seed, device=DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    serve.generate(params, cfg, tokens[:, :256], 2)
+    torch.cuda.reset_peak_memory_stats()
+    return {"cfg": cfg, "params": params, "tokens": tokens, "init_s": init_s,
+            "seed": seed}
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def rel_rms(got, want) -> float:
+    """RMS of got - want over the RMS of want, in f32."""
+    g, w = got.float(), want.float()
+    return float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+
+
+def decode_check(params, cfg, ct, dtype: str, attention=causal_attention,
+                 slot: int = 0) -> dict:
+    """Prefill ct[:, :-1], decode its last token into cache slot
+    ``len + slot`` (0 is right; -1 is the control, a cache write one slot
+    early), and compare the decode logits with the full forward's at that
+    position, with the weights and activations in ``dtype`` and
+    ``attention`` in the prefill and the forward."""
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = _cast(params, cfg.torch_dtype)
+    n = ct.shape[1] - 1
+    _, caches = tfm.prefill(params, ct[:, :n], cfg, cache_len=n + 4,
+                            attention=attention)
+    lengths = torch.full((ct.shape[0],), n + slot, dtype=torch.int64,
+                         device=DEV)
+    dec, _, new_len = tfm.decode_step(params, caches, ct[:, n:], lengths, cfg)
+    require(bool((new_len == lengths + 1).all())
+            and bool(torch.isfinite(dec).all()),
+            "decode advances the cache and gives finite logits")
+    full = tfm.forward(params, ct, cfg, attention=attention)[:, n]
+    err, ok = close(dec, full, LM_TOL)
+    return {"max_abs_err": err, f"within_{LM_TOL}": ok,
+            "rel_rms_err": rel_rms(dec, full),
+            "max_abs_logit": float(full.float().abs().max())}
+
+
+def _device_summary(prof, wall_s: float) -> dict:
+    """Device time of a profiled window: the union of its kernels' spans,
+    the idle share of the host-clock window, and the kernels that took
+    the most device time."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    wall_ms = wall_s * 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+            "kernel_launches": len(kernels),
+            "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top}}
+
+
+def lm_profile(lm: dict) -> dict:
+    """Where the LM path's time goes: torch.profiler over one prefill and
+    over three decode steps (after one unprofiled step), device time
+    against the host clock."""
+    cfg, params, tokens = lm["cfg"], lm["params"], lm["tokens"]
+    b, s = tokens.shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, caches = tfm.prefill(params, tokens, cfg, cache_len=s + 4)
+        sync()
+        wall = time.perf_counter() - t0
+    out = {"prefill": _device_summary(prof, wall)}
+    tok = logits.argmax(-1, keepdim=True)
+    lengths = torch.full((b,), s, dtype=torch.int64, device=DEV)
+    logits, caches, lengths = tfm.decode_step(params, caches, tok, lengths,
+                                              cfg)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tok = logits.argmax(-1, keepdim=True)
+            logits, caches, lengths = tfm.decode_step(params, caches, tok,
+                                                      lengths, cfg)
+        sync()
+        wall = time.perf_counter() - t0
+    out["decode_3_steps"] = _device_summary(prof, wall)
+    return out
+
+
+def check_lm(lm: dict, launches: dict) -> dict:
+    """The LM path's outputs: shapes, finiteness and B6's launches; the
+    prefill again with the plain chunked attention on the card; decode
+    after prefill against the full forward (tests/test_archs_smoke.py's
+    test_lm_prefill_decode) at 2 × 256: within 2e-2 in f32; in bf16, on
+    the B6 route and with the plain attention on both sides, within
+    LM_BF16_DECODE_LIMIT, which a one-slot-early cache write exceeds."""
+    cfg, params, tokens, out = lm["cfg"], lm["params"], lm["tokens"], lm["out"]
+    peak = torch.cuda.max_memory_allocated()
+    b, s = tokens.shape
+    logits = out["prefill_logits"]
+    require(logits.shape == (b, cfg.vocab) and logits.dtype == torch.bfloat16
+            and bool(torch.isfinite(logits).all()),
+            "prefill logits are finite bf16 [B, V]")
+    picks = out["tokens"]
+    require(picks.shape == (b, LM_DECODE_STEPS + 1)
+            and bool(((picks >= 0) & (picks < cfg.vocab)).all()),
+            "greedy tokens are vocabulary ids")
+    require(launches["flash_attention"] == cfg.n_layers,
+            "prefill launches B6 once per layer, decode never")
+
+    sync()
+    t0 = time.perf_counter()
+    plain, _ = tfm.prefill(params, tokens, cfg,
+                           attention=causal_attention_plain)
+    sync()
+    plain_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(plain).all()), "plain prefill logits finite")
+    diff = float((logits.float() - plain.float()).abs().max())
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    del plain
+
+    ct = tokens[:LM_CHECK_BATCH, :LM_CHECK_SEQ + 1]
+    checks = {"float32": decode_check(params, cfg, ct, "float32"),
+              "bfloat16": decode_check(params, cfg, ct, "bfloat16"),
+              "bfloat16_plain": decode_check(params, cfg, ct, "bfloat16",
+                                             causal_attention_plain),
+              "bfloat16_control_slot_early": decode_check(
+                  params, cfg, ct, "bfloat16", slot=-1)}
+    require(checks["float32"][f"within_{LM_TOL}"],
+            f"f32 decode logits equal the full forward's within {LM_TOL}")
+    for name in ("bfloat16", "bfloat16_plain"):
+        require(checks[name]["max_abs_err"] <= LM_BF16_DECODE_LIMIT,
+                f"{name} decode logits within {LM_BF16_DECODE_LIMIT} of the "
+                "full forward's")
+    require(checks["bfloat16_control_slot_early"]["max_abs_err"]
+            > LM_BF16_DECODE_LIMIT,
+            "a one-slot-early cache write exceeds the bf16 decode limit")
+    out_line = {
+        "phase": "lm", "arch": cfg.name,
+        "config": {k: getattr(cfg, k) for k in (
+            "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+            "d_ff", "vocab", "qk_norm", "rope_mode", "dtype")},
+        "params": model_common.count_params(params), "seed": lm["seed"],
+        "batch": b, "seq": s, "decode_steps": LM_DECODE_STEPS,
+        "reduced": "batch 32 -> 4 and seq 32,768 -> 4,096 against "
+                   "prefill_32k (its KV cache, ~120 GB, is over one card); "
+                   "random weights",
+        "init_s": lm["init_s"], "prefill_s": out["prefill_s"],
+        "prefill_tok_per_s": b * s / out["prefill_s"],
+        "decode_s": out["decode_s"],
+        "decode_tok_per_s": out["decode_tok_per_s"],
+        "flash_attention_launches": launches["flash_attention"],
+        "peak_mem_gb": peak / 2**30,
+        "plain_prefill_s": plain_s,
+        "last_logits_max_abs_diff_vs_plain": diff,
+        "last_logits_argmax_agree_vs_plain": agree,
+        "decode_check": {"batch": LM_CHECK_BATCH, "seq": LM_CHECK_SEQ,
+                         "f32_tol": LM_TOL,
+                         "bf16_limit": LM_BF16_DECODE_LIMIT, **checks},
+        "greedy_tokens_row0": picks[0].tolist(),
+        "profile": lm_profile(lm)}
+    emit(out_line)
+    return out_line
+
+
+def _flash_inputs(b, s, hq, hkv, d, dtype, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+
+# B6 edge cases: (B, S, Hq, Hkv, D, dtype). An f32 run at the main path's
+# heads; the shapes of tests/test_flash_kernel.py (G = 2, MHA G = 1, MQA
+# G = 4, and bf16); S = 1 and S = 100 (no tile multiple); the reduced
+# qwen3 config's head dim.
+FLASH_CASES = {
+    "f32_main_heads": (1, 2048, 16, 8, 128, torch.float32),
+    "g2_f32": (1, 256, 4, 2, 64, torch.float32),
+    "g1_f32": (2, 256, 8, 8, 32, torch.float32),
+    "g4_f32": (2, 512, 4, 1, 64, torch.float32),
+    "g2_bf16": (1, 256, 4, 2, 64, torch.bfloat16),
+    "s1_bf16": (LM_BATCH, 1, 16, 8, 128, torch.bfloat16),
+    "s1_f32": (2, 1, 16, 8, 128, torch.float32),
+    "s100_bf16": (2, 100, 16, 8, 128, torch.bfloat16),
+    "s100_f32": (2, 100, 16, 8, 128, torch.float32),
+    "d16_bf16": (2, 100, 4, 2, 16, torch.bfloat16),
+}
+
+
+def parity_flash() -> dict:
+    """B6 against its plain version on the card: at the LM path's shape
+    (bf16, 2e-2), on the edge cases (2e-2 bf16, 2e-5 f32) and for
+    causality, and in bf16 also its relative RMS error (at most
+    FLASH_BF16_REL_RMS); then its time, the plain version's and SDPA's."""
+    edge = {}
+    for i, (name, (b, s, hq, hkv, d, dtype)) in enumerate(FLASH_CASES.items()):
+        q, k, v = _flash_inputs(b, s, hq, hkv, d, dtype, 100 + i)
+        tol = LM_TOL if dtype == torch.bfloat16 else F32_TOL
+        got = flash_attention(q, k, v)
+        require(bool(torch.isfinite(got).all()), f"B6 finite on {name}")
+        want = ref.flash_attention_ref(q, k, v)
+        err, ok = close(got, want, tol)
+        require(ok, f"flash_attention kernel within {tol} of plain on {name}")
+        edge[name] = {"shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+                      "tol": tol, "max_abs_err": err}
+        if dtype == torch.bfloat16:
+            edge[name]["rel_rms_err"] = rel_rms(got, want)
+            require(edge[name]["rel_rms_err"] <= FLASH_BF16_REL_RMS,
+                    f"flash_attention kernel's relative RMS error within "
+                    f"{FLASH_BF16_REL_RMS} on {name}")
+    # Future keys must not move the first half's outputs.
+    q, k, v = _flash_inputs(1, 256, 2, 2, 32, torch.float32, 99)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 128:] = 99.0
+    v2[:, 128:] = -99.0
+    causal_err, ok = close(flash_attention(q, k2, v2)[:, :128],
+                           flash_attention(q, k, v)[:, :128], 1e-6)
+    require(ok, "flash_attention kernel is causal")
+
+    b, s, hq, hkv, d = LM_BATCH, LM_SEQ, 16, 8, 128
+    q, k, v = _flash_inputs(b, s, hq, hkv, d, torch.bfloat16, 0)
+    got = flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    err, ok = close(got, want, LM_TOL)
+    require(ok and bool(torch.isfinite(got).all()),
+            "flash_attention kernel within 2e-2 of plain at the LM shape")
+    err_rms = rel_rms(got, want)
+    require(err_rms <= FLASH_BF16_REL_RMS,
+            f"flash_attention kernel's relative RMS error within "
+            f"{FLASH_BF16_REL_RMS} at the LM shape")
+    # The control: the plain version's f32 output truncated to bf16.
+    exact = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    truncated = (exact.view(torch.int32) & ~0xFFFF).view(torch.float32)
+    control_rms = rel_rms(truncated.to(torch.bfloat16), want)
+    del exact, truncated
+    require(control_rms > FLASH_BF16_REL_RMS,
+            "an output truncated to bf16 exceeds the relative RMS limit")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    del want
+    ops = 4 * b * hq * d * (s * (s + 1) // 2)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
+    return {
+        "shape": [b, s, hq, hkv, d], "dtype": "bfloat16", "max_abs_err": err,
+        "parity": "2e-2 bf16, 2e-5 f32", "ms": ms,
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
+        "library_ms": cuda_ms(sdpa, 10),
+        "library_note": "torch.nn.functional.scaled_dot_product_attention "
+                        "(is_causal, enable_gqa) on [B,H,S,D] views of the "
+                        "same tensors",
+        "library_max_abs_err": lib_err,
+        # q, k and v read once, o written once; the two products over the
+        # causal (q, k) pairs, at the bf16 tensor-core rate.
+        "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
+        "ops": ops, "peak_ops_per_s": TENSOR_BF16_FLOPS,
+        "achieved_tflops": ops / ms / 1e9,
+        "rel_rms_err": err_rms, "rel_rms_limit": FLASH_BF16_REL_RMS,
+        "rel_rms_control_truncated": control_rms,
+        "edge_cases": edge, "causality_max_abs_err": causal_err,
+    }
+
 
 # Keys of a parity result that the kernels line reports on their own.
 _ENTRY_KEYS = ("shape", "max_abs_err", "parity", "ms", "plain_ms", "bytes",
-               "ops", "library_ms", "library_note")
+               "ops", "library_ms", "library_note", "peak_ops_per_s")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LM path's weights and prompt")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1175,6 +1532,14 @@ def main() -> int:
     launches["host_pruned"] = read()
     cand_rec, cand_q = check_host_pruned(index, batches, host_run, run,
                                          hits_seen, topk_seen)
+    lm = lm_setup(args.seed)
+    reset()
+    lm["out"] = serve.generate(lm["params"], lm["cfg"], lm["tokens"],
+                               LM_DECODE_STEPS)
+    launches["lm"] = read()
+    check_lm(lm, launches["lm"])
+    lm.clear()
+    torch.cuda.empty_cache()
     for path, names in PATH_KERNELS.items():
         for name in names:
             require(launches[path][name] > 0,
@@ -1190,7 +1555,7 @@ def main() -> int:
     kernels = []
     for name, r in results.items():
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = r["ops"] / ALU_OPS_PER_S * 1e3
+        ops_ms = r["ops"] / r.get("peak_ops_per_s", ALU_OPS_PER_S) * 1e3
         kernels.append({
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": sum(launches[path][name] for path in launches),

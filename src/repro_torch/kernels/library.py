@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("hash_threshold.cu", "gbkmv_score.cu", "gather_score.cu",
-           "postings_probe.cu", "block_decode.cu")
+           "postings_probe.cu", "block_decode.cu", "flash_attention.cu")
 HEADERS = ("gbkmv_pair.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
 # Every C entry point, with its argument types (pointers and the stream
 # as void*, so ctypes never cuts them to 32 bits).
 _SIGNATURES = {
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "postings_probe_launch": ([_P, _I64, _P, _I64, _P, _P, _P], _I32),
     "block_decode_launch": ([_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _I64,
                              _I32, _I32, _I64, _P, _P], _I32),
+    "flash_attention_launch": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                                _I32, _F32, _P], _I32),
     "repro_cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 

@@ -229,3 +229,21 @@ def kcount_ref(pos, hit, row_blocks, first, meta, off, payload, *,
         lin = (ids * gq + q[:, None])[ok]
         kflat += torch.bincount(lin, minlength=m * gq)
     return kflat.view(m, gq).to(torch.int32)
+
+
+def flash_attention_ref(q, k, v, *, scale: float | None = None
+                        ) -> torch.Tensor:
+    """Causal GQA attention, the B6 kernel's function: q [B,S,Hq,D], k/v
+    [B,S,Hkv,D] -> [B,S,Hq,D] in q's dtype. Query head h attends with kv
+    head h // G (G = Hq/Hkv); scores ``(q * scale) · k`` in f32 with
+    ``scale = D**-0.5`` by default, keys above the query's position masked,
+    an f32 softmax, and the f32 probabilities times f32 v."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qg = (q.float() * scale).reshape(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float())
+    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
+    o = torch.einsum("bhgts,bshd->bthgd", p, v.float())
+    return o.reshape(b, s, hq, d).to(q.dtype)

@@ -11,10 +11,11 @@ back the packed hit words or the [Gq, k] top-k pair, never an m×Gq
 matrix).
 
 The staging pool keeps one host blob per (capacity, buffer width) and
-device type, pinned for a CUDA device and sized for the largest batch
-seen: a batch fills a prefix of it in place through dtype views and
-copies that prefix in one ``non_blocking`` transfer, and an event
-recorded after the copy orders the next refill behind it. A larger batch
+device (type and index), pinned for a CUDA device and sized for the
+largest batch seen: a batch fills a prefix of it in place through dtype
+views and copies that prefix in one ``non_blocking`` transfer, and an
+event recorded on that card's stream after the copy orders the next
+refill behind it. A larger batch
 replaces the blob, so the pool holds one blob per index layout whatever
 batch sizes arrive. ``PIPELINE_STATS`` counts pipeline calls and the
 pool's allocations and reuses.
@@ -84,8 +85,17 @@ class _Staging:
     copied: torch.cuda.Event | None = None   # after the last copy out
 
 
+def staging_key(cq: int, w: int, device: torch.device) -> tuple:
+    """The pool key of a blob: the layout and the full device, so that two
+    cards never share a blob (an index-less ``cuda`` is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return (cq, w, device.type, device.index)
+
+
 def _staging(gq: int, cq: int, w: int, device: torch.device) -> _Staging:
-    key = (cq, w, device.type)
+    key = staging_key(cq, w, device)
     st = _STAGING.get(key)
     if st is not None and st.copied is not None:
         st.copied.synchronize()       # the last copy out of this blob is done
@@ -127,10 +137,14 @@ def stage_query_inputs(arena: SketchArena, qp, thresholds=None, *, device):
     thr[:] = np.inf
     if thresholds is not None:
         thr[:] = np.broadcast_to(prune.f32_threshold(thresholds), (gq,))
-    blob = st.host[:o3 + gq].to(device, non_blocking=True, copy=True)
-    if device.type == "cuda":
+    if device.type != "cuda":
+        return dpost, dpack, StagedQuery(st.host[:o3 + gq].clone(), gq, cq, w)
+    # The copy runs on the target card's current stream; the event that
+    # orders the next refill behind it is recorded on that same stream.
+    with torch.cuda.device(device):
+        blob = st.host[:o3 + gq].to(device, non_blocking=True, copy=True)
         st.copied = torch.cuda.Event()
-        st.copied.record()
+        st.copied.record(torch.cuda.current_stream(device))
     return dpost, dpack, StagedQuery(blob, gq, cq, w)
 
 

@@ -5,7 +5,9 @@ neither jax nor ``repro``, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance 0 throughout: the kernels must give the plain versions' bits.
+Tolerance 0 for B1-B5: the kernels must give the plain versions' bits.
+B6 (flash attention) sums in another order than its plain version: 2e-5
+in f32 and 2e-2 in bf16, the tolerances of tests/test_flash_kernel.py.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from repro_torch.data.synth import generate_dataset, make_query_workload
 from repro_torch.kernels import gather_score as gs_mod
 from repro_torch.kernels import gbkmv_score as score_mod, ops, ref
 from repro_torch.kernels import postings_merge as pm
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.hash_threshold import hash_threshold
 from repro_torch.planner import device as planner_device
 from repro_torch.planner import postings as P
@@ -393,3 +396,41 @@ def test_pipeline_middle_makes_no_host_sync(cuda_device):
         di, ds = index.topk(q, 10, plan="dense")
         assert np.array_equal(ids[g].cpu().numpy(), di)
         assert np.array_equal(vals[g].cpu().numpy(), ds)
+
+
+# ---------------------------------------------------------------------------
+# B6: causal GQA flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,dtype", [
+    (1, 256, 4, 2, 64, torch.float32),
+    (2, 256, 8, 8, 32, torch.float32),      # MHA (G=1)
+    (2, 512, 4, 1, 64, torch.float32),      # MQA (G=4)
+    (1, 256, 4, 2, 64, torch.bfloat16),
+    (2, 1, 16, 8, 128, torch.bfloat16),     # S = 1
+    (2, 100, 16, 8, 128, torch.float32),    # S not a tile multiple
+    (1, 777, 4, 2, 16, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain(cuda_device, b, s, hq, hkv, d, dtype):
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
+        np.float32)).to(cuda_device, dtype) for h in (hq, hkv, hkv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_is_causal(cuda_device):
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 256, 2, 32)).astype(
+        np.float32)).to(cuda_device) for _ in range(3))
+    out1 = flash_attention(q, k, v)
+    k[:, 128:] = 99.0
+    v[:, 128:] = -99.0
+    out2 = flash_attention(q, k, v)
+    torch.testing.assert_close(out1[:, :128], out2[:, :128], rtol=1e-6,
+                               atol=1e-6)
