@@ -39,13 +39,20 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            in bf16, on the B6 route and on the plain route, an absolute
            limit that a one-slot-early cache write (run as a control)
            exceeds; a torch.profiler breakdown of one
-           prefill and three decode steps (device busy and idle share)
+           prefill and three decode steps (device busy and idle share);
+           B6's tensor-core body must have run once per layer, as the
+           kernels count their own launches on the card
   parity   each kernel against its plain PyTorch version on the card, at
            the main paths' shapes and on edge cases: exact equality for
            B1-B5 (B4 also on an index whose tail has dense-bitmap blocks and
-           on synthetic blocks), 2e-2 (bf16) and 2e-5 (f32) for B6, and
-           in bf16 a relative RMS error limit, with a truncated-output
-           control that exceeds it
+           on synthetic blocks), 2e-2 (bf16) and 2e-5 (f32) for B6 on
+           each case, with the body that ran (tensor cores, "wgmma", or
+           CUDA cores, as the kernels count their own launches on the
+           card, and required to be the one its dtype and D call for)
+           and, in bf16, a relative RMS error limit with a
+           truncated-output control that exceeds it; causality on both
+           bodies; SDPA's error beside B6's; the HGMMA and TMA-load
+           instructions in the tensor-core body's SASS
   kernels  per kernel: launches on the main paths, error, times, bound
 
 Four main paths are counted: the dense path (build, query, save), the
@@ -89,7 +96,8 @@ from repro_torch.core.sketches import RaggedBatch  # noqa: E402
 from repro_torch.data.datasets import SPECS  # noqa: E402
 from repro_torch.data.synth import generate_dataset, make_query_workload  # noqa: E402
 from repro_torch.kernels import library, postings_merge, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    body_launches as flash_body_launches, flash_attention)
 from repro_torch.kernels.gather_score import gather_score  # noqa: E402
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
@@ -1274,6 +1282,22 @@ def _device_summary(prof, wall_s: float) -> dict:
             "top_kernels_ms": {name[:60]: us / 1e3 for name, us in top}}
 
 
+def launched_bodies(fn):
+    """fn()'s result and the B6 launches that ran on the card meanwhile,
+    per body, as the kernels count them (bodies not launched left out)."""
+    before = flash_body_launches()
+    out = fn()
+    after = flash_body_launches()
+    return out, {k: n - before[k] for k, n in after.items() if n > before[k]}
+
+
+def expected_body(dtype, d: int) -> str:
+    """The body B6 is designed to run: tensor cores for bf16 at D 64 or
+    128, CUDA cores otherwise."""
+    return ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
+            else "cuda-core")
+
+
 def lm_profile(lm: dict) -> dict:
     """Where the LM path's time goes: torch.profiler over one prefill and
     over three decode steps (after one unprofiled step), device time
@@ -1323,6 +1347,9 @@ def check_lm(lm: dict, launches: dict) -> dict:
             "greedy tokens are vocabulary ids")
     require(launches["flash_attention"] == cfg.n_layers,
             "prefill launches B6 once per layer, decode never")
+    require(lm["bodies"] == {"wgmma": cfg.n_layers},
+            "B6's tensor-core body ran once per layer on the LM path, by "
+            f"the kernels' own count ({lm['bodies']})")
 
     sync()
     t0 = time.perf_counter()
@@ -1366,6 +1393,7 @@ def check_lm(lm: dict, launches: dict) -> dict:
         "decode_s": out["decode_s"],
         "decode_tok_per_s": out["decode_tok_per_s"],
         "flash_attention_launches": launches["flash_attention"],
+        "flash_attention_bodies": lm["bodies"],
         "peak_mem_gb": peak / 2**30,
         "plain_prefill_s": plain_s,
         "last_logits_max_abs_diff_vs_plain": diff,
@@ -1388,7 +1416,8 @@ def _flash_inputs(b, s, hq, hkv, d, dtype, seed):
 # B6 edge cases: (B, S, Hq, Hkv, D, dtype). An f32 run at the main path's
 # heads; the shapes of tests/test_flash_kernel.py (G = 2, MHA G = 1, MQA
 # G = 4, and bf16); S = 1 and S = 100 (no tile multiple); the reduced
-# qwen3 config's head dim.
+# qwen3 config's head dim; on the tensor-core body (bf16, D 64 or 128)
+# G = 1, 3 (not dividing the block's 128 rows), 4 and 8.
 FLASH_CASES = {
     "f32_main_heads": (1, 2048, 16, 8, 128, torch.float32),
     "g2_f32": (1, 256, 4, 2, 64, torch.float32),
@@ -1400,7 +1429,17 @@ FLASH_CASES = {
     "s100_bf16": (2, 100, 16, 8, 128, torch.bfloat16),
     "s100_f32": (2, 100, 16, 8, 128, torch.float32),
     "d16_bf16": (2, 100, 4, 2, 16, torch.bfloat16),
+    "g1_s777_bf16": (1, 777, 8, 8, 128, torch.bfloat16),
+    "g3_bf16": (1, 200, 6, 2, 128, torch.bfloat16),
+    "g4_bf16": (2, 512, 16, 4, 128, torch.bfloat16),
+    "g8_d64_bf16": (1, 300, 8, 1, 64, torch.bfloat16),
 }
+# The tensor-core body's kernel at the LM path's head dim, as its SASS
+# names it, and the instructions that show tensor cores and TMA.
+FLASH_TC_SYMBOL = "flash_attention_tc_kernelILi128E"
+SASS_OPS = ("HGMMA", "UTMALDG")
+# B6 wrapper calls whose host time is averaged.
+WRAPPER_CALLS = 20
 
 
 def parity_flash() -> dict:
@@ -1412,13 +1451,17 @@ def parity_flash() -> dict:
     for i, (name, (b, s, hq, hkv, d, dtype)) in enumerate(FLASH_CASES.items()):
         q, k, v = _flash_inputs(b, s, hq, hkv, d, dtype, 100 + i)
         tol = LM_TOL if dtype == torch.bfloat16 else F32_TOL
-        got = flash_attention(q, k, v)
+        got, bodies = launched_bodies(lambda: flash_attention(q, k, v))
         require(bool(torch.isfinite(got).all()), f"B6 finite on {name}")
+        require(bodies == {expected_body(dtype, d): 1},
+                f"B6 runs its {expected_body(dtype, d)} body on {name} "
+                f"(counted {bodies})")
         want = ref.flash_attention_ref(q, k, v)
         err, ok = close(got, want, tol)
         require(ok, f"flash_attention kernel within {tol} of plain on {name}")
         edge[name] = {"shape": [b, s, hq, hkv, d], "dtype": str(dtype),
-                      "tol": tol, "max_abs_err": err}
+                      "body": next(iter(bodies)), "tol": tol,
+                      "max_abs_err": err}
         if dtype == torch.bfloat16:
             edge[name]["rel_rms_err"] = rel_rms(got, want)
             require(edge[name]["rel_rms_err"] <= FLASH_BF16_REL_RMS,
@@ -1432,10 +1475,20 @@ def parity_flash() -> dict:
     causal_err, ok = close(flash_attention(q, k2, v2)[:, :128],
                            flash_attention(q, k, v)[:, :128], 1e-6)
     require(ok, "flash_attention kernel is causal")
+    # The same on the tensor-core body, cut inside a key tile.
+    q, k, v = _flash_inputs(1, 256, 4, 2, 128, torch.bfloat16, 98)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 100:] = 99.0
+    v2[:, 100:] = -99.0
+    causal_bf16_err, ok = close(flash_attention(q, k2, v2)[:, :100],
+                                flash_attention(q, k, v)[:, :100], 1e-6)
+    require(ok, "flash_attention kernel is causal on the tensor-core body")
 
     b, s, hq, hkv, d = LM_BATCH, LM_SEQ, 16, 8, 128
     q, k, v = _flash_inputs(b, s, hq, hkv, d, torch.bfloat16, 0)
-    got = flash_attention(q, k, v)
+    got, bodies = launched_bodies(lambda: flash_attention(q, k, v))
+    require(bodies == {"wgmma": 1},
+            f"the LM shape runs B6's tensor-core body (counted {bodies})")
     want = ref.flash_attention_ref(q, k, v)
     err, ok = close(got, want, LM_TOL)
     require(ok and bool(torch.isfinite(got).all()),
@@ -1456,11 +1509,23 @@ def parity_flash() -> dict:
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                               enable_gqa=True)
-    lib_err = float((sdpa().transpose(1, 2).float()
-                     - want.float()).abs().max())
-    del want
+    lib_out = sdpa().transpose(1, 2)
+    lib_err = float((lib_out.float() - want.float()).abs().max())
+    lib_rms = rel_rms(lib_out, want)
+    del want, lib_out
+    sass = sass_counts(FLASH_TC_SYMBOL)
+    for op in SASS_OPS:
+        require(sass[op] > 0, f"B6's tensor-core body has {op} in its SASS")
     ops = 4 * b * hq * d * (s * (s + 1) // 2)
     ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
+    # Host time of one wrapper call (checks, three tensor maps, launch),
+    # issued back to back without a sync.
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(WRAPPER_CALLS):
+        flash_attention(q, k, v)
+    host_us = (time.perf_counter() - t0) / WRAPPER_CALLS * 1e6
+    sync()
     return {
         "shape": [b, s, hq, hkv, d], "dtype": "bfloat16", "max_abs_err": err,
         "parity": "2e-2 bf16, 2e-5 f32", "ms": ms,
@@ -1470,6 +1535,10 @@ def parity_flash() -> dict:
                         "(is_causal, enable_gqa) on [B,H,S,D] views of the "
                         "same tensors",
         "library_max_abs_err": lib_err,
+        # SDPA rounds p to bf16 once before P·V: the error the hi/lo split
+        # avoids.
+        "library_rel_rms_err": lib_rms,
+        "body": "wgmma", "sass": sass, "wrapper_host_us": host_us,
         # q, k and v read once, o written once; the two products over the
         # causal (q, k) pairs, at the bf16 tensor-core rate.
         "bytes": 2 * (2 * q.numel() + k.numel() + v.numel()),
@@ -1478,12 +1547,33 @@ def parity_flash() -> dict:
         "rel_rms_err": err_rms, "rel_rms_limit": FLASH_BF16_REL_RMS,
         "rel_rms_control_truncated": control_rms,
         "edge_cases": edge, "causality_max_abs_err": causal_err,
+        "causality_bf16_max_abs_err": causal_bf16_err,
     }
+
+
+def sass_counts(symbol: str) -> dict:
+    """How many of each of SASS_OPS the built library's kernel whose
+    mangled name holds ``symbol`` has (cuobjdump --dump-sass)."""
+    cuobjdump = Path(library._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(library.build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = dict.fromkeys(SASS_OPS, 0)
+    inside = False
+    for line in sass.splitlines():
+        if "Function : " in line:
+            inside = symbol in line
+        elif inside:
+            for op in SASS_OPS:
+                counts[op] += op in line
+    return counts
 
 
 # Keys of a parity result that the kernels line reports on their own.
 _ENTRY_KEYS = ("shape", "max_abs_err", "parity", "ms", "plain_ms", "bytes",
                "ops", "library_ms", "library_note", "peak_ops_per_s")
+# Keys that a kernel's entry carries beside those, where its result has them.
+_EXTRA_KEYS = ("body", "achieved_tflops", "sass", "library_rel_rms_err")
 
 
 def main(argv=None) -> int:
@@ -1534,8 +1624,8 @@ def main(argv=None) -> int:
                                          hits_seen, topk_seen)
     lm = lm_setup(args.seed)
     reset()
-    lm["out"] = serve.generate(lm["params"], lm["cfg"], lm["tokens"],
-                               LM_DECODE_STEPS)
+    lm["out"], lm["bodies"] = launched_bodies(lambda: serve.generate(
+        lm["params"], lm["cfg"], lm["tokens"], LM_DECODE_STEPS))
     launches["lm"] = read()
     check_lm(lm, launches["lm"])
     lm.clear()
@@ -1570,7 +1660,9 @@ def main(argv=None) -> int:
                 "library_note",
                 "no single PyTorch call computes this function"),
             "shape": r["shape"], "bytes": r["bytes"], "ops": r["ops"],
-            "detail": {k: v for k, v in r.items() if k not in _ENTRY_KEYS},
+            **{k: r[k] for k in _EXTRA_KEYS if k in r},
+            "detail": {k: v for k, v in r.items()
+                       if k not in _ENTRY_KEYS + _EXTRA_KEYS},
             "card": card["nvidia_smi"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,19 @@ On CUDA tensors it launches ``csrc/flash_attention.cu``; on CPU tensors it
 runs the plain version :func:`repro_torch.kernels.ref.flash_attention_ref`.
 The kernel takes any S >= 1 (the Pallas wrapper asks S to be a multiple
 of its blocks) and has no block-shape arguments: its tiles are fixed.
+
+The kernel has two bodies, chosen by dtype and head dim: bf16 at D = 64 or
+128 runs on the tensor cores (``"wgmma"``: TMA loads of K/V, both products
+by wgmma, P·V as two bf16 products of P's high and low halves); f32 at
+every D and bf16 at D = 16 or 32 run on the CUDA cores (``"cuda-core"``,
+f32 products). Each kernel counts its own launches on the card, so
+:func:`body_launches` shows which body ran. A launch that fails raises;
+there is no fallback from one body to the other.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -17,6 +27,8 @@ from repro_torch.kernels.library import check, library
 #: Head dims the kernel is built for, and the most query heads per kv head.
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 128
+#: The kernel's bodies, in the order it counts their launches.
+BODIES = ("cuda-core", "wgmma")
 
 
 def _check_inputs(q, k, v) -> None:
@@ -58,6 +70,9 @@ def flash_attention(q, k, v, *, scale: float | None = None) -> torch.Tensor:
         raise ValueError(f"the kernel takes D in {HEAD_DIMS} and at most "
                          f"{MAX_GROUP} query heads per kv head; got D={d}, "
                          f"G={hq // hkv}")
+    # TMA reads from 16-byte aligned addresses only; a contiguous view at
+    # an odd offset is copied (fresh allocations are always aligned).
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     if b and s:
         lib = library()
@@ -72,3 +87,15 @@ def flash_attention(q, k, v, *, scale: float | None = None) -> torch.Tensor:
 
 
 flash_attention.launches = 0
+
+
+def body_launches(device=None) -> dict[str, int]:
+    """The kernel's launches that ran on ``device`` (a CUDA device, the
+    current one by default) since the library was loaded, per body, as
+    the kernels count them on the card. Waits for the device first."""
+    counts = (ctypes.c_ulonglong * len(BODIES))()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        check(library().flash_attention_body_launches(counts),
+              "flash_attention_body_launches")
+    return dict(zip(BODIES, counts))

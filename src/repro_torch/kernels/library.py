@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("hash_threshold.cu", "gbkmv_score.cu", "gather_score.cu",
            "postings_probe.cu", "block_decode.cu", "flash_attention.cu")
-HEADERS = ("gbkmv_pair.cuh",)
+HEADERS = ("gbkmv_pair.cuh", "wgmma_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -47,6 +47,7 @@ _SIGNATURES = {
                              _I32, _I32, _I64, _P, _P], _I32),
     "flash_attention_launch": ([_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                                 _I32, _F32, _P], _I32),
+    "flash_attention_body_launches": ([_P], _I32),
     "repro_cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 

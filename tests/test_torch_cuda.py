@@ -7,7 +7,9 @@ neither jax nor ``repro``, so it runs where only PyTorch is installed:
 
 Tolerance 0 for B1-B5: the kernels must give the plain versions' bits.
 B6 (flash attention) sums in another order than its plain version: 2e-5
-in f32 and 2e-2 in bf16, the tolerances of tests/test_flash_kernel.py.
+in f32 and 2e-2 in bf16, the tolerances of tests/test_flash_kernel.py; in
+bf16 also a relative RMS error of at most 2**-10 (the limit of
+chip_smoke.py), which one bf16 rounding of the probabilities would exceed.
 """
 
 import numpy as np
@@ -22,7 +24,7 @@ from repro_torch.data.synth import generate_dataset, make_query_workload
 from repro_torch.kernels import gather_score as gs_mod
 from repro_torch.kernels import gbkmv_score as score_mod, ops, ref
 from repro_torch.kernels import postings_merge as pm
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import body_launches, flash_attention
 from repro_torch.kernels.hash_threshold import hash_threshold
 from repro_torch.planner import device as planner_device
 from repro_torch.planner import postings as P
@@ -403,6 +405,18 @@ def test_pipeline_middle_makes_no_host_sync(cuda_device):
 # ---------------------------------------------------------------------------
 
 
+FLASH_BF16_REL_RMS = 2.0 ** -10
+
+
+def _launched_bodies(fn):
+    """fn()'s result and the B6 bodies that ran meanwhile, by the kernels'
+    own count on the card."""
+    before = body_launches()
+    out = fn()
+    after = body_launches()
+    return out, {k: n - before[k] for k, n in after.items() if n > before[k]}
+
+
 @pytest.mark.parametrize("b,s,hq,hkv,d,dtype", [
     (1, 256, 4, 2, 64, torch.float32),
     (2, 256, 8, 8, 32, torch.float32),      # MHA (G=1)
@@ -411,26 +425,65 @@ def test_pipeline_middle_makes_no_host_sync(cuda_device):
     (2, 1, 16, 8, 128, torch.bfloat16),     # S = 1
     (2, 100, 16, 8, 128, torch.float32),    # S not a tile multiple
     (1, 777, 4, 2, 16, torch.bfloat16),
+    # The tensor-core body (bf16, D = 128): G = 1, 2, 4, 8; S = 1, 100,
+    # 777, 4,096; B = 2 (rows of one batch must not reach the other's).
+    (1, 256, 8, 8, 128, torch.bfloat16),    # G = 1
+    (1, 256, 16, 8, 128, torch.bfloat16),   # G = 2
+    (1, 256, 16, 4, 128, torch.bfloat16),   # G = 4
+    (1, 256, 16, 2, 128, torch.bfloat16),   # G = 8
+    (1, 1, 16, 8, 128, torch.bfloat16),     # S = 1
+    (1, 100, 16, 8, 128, torch.bfloat16),   # S = 100
+    (1, 777, 16, 8, 128, torch.bfloat16),   # S = 777
+    (1, 4096, 16, 8, 128, torch.bfloat16),  # S = 4,096
+    (2, 777, 8, 2, 128, torch.bfloat16),    # B = 2
 ])
 def test_flash_kernel_matches_plain(cuda_device, b, s, hq, hkv, d, dtype):
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
         np.float32)).to(cuda_device, dtype) for h in (hq, hkv, hkv))
     before = flash_attention.launches
-    got = flash_attention(q, k, v)
+    got, bodies = _launched_bodies(lambda: flash_attention(q, k, v))
     assert flash_attention.launches == before + 1
     want = ref.flash_attention_ref(q, k, v)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
+    assert bodies == {"wgmma" if tensor_cores else "cuda-core": 1}
+    if dtype == torch.bfloat16:
+        err = (got.float() - want.float()).pow(2).mean().sqrt()
+        assert err <= FLASH_BF16_REL_RMS * want.float().pow(2).mean().sqrt()
 
 
-def test_flash_kernel_is_causal(cuda_device):
+@pytest.mark.parametrize("hq,hkv,d,dtype,cut", [
+    (2, 2, 32, torch.float32, 128),
+    (4, 2, 128, torch.bfloat16, 100),   # tensor cores, cut inside a tile
+], ids=["f32", "bf16"])
+def test_flash_kernel_is_causal(cuda_device, hq, hkv, d, dtype, cut):
     rng = np.random.default_rng(2)
-    q, k, v = (torch.from_numpy(rng.normal(size=(1, 256, 2, 32)).astype(
-        np.float32)).to(cuda_device) for _ in range(3))
-    out1 = flash_attention(q, k, v)
-    k[:, 128:] = 99.0
-    v[:, 128:] = -99.0
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 256, h, d)).astype(
+        np.float32)).to(cuda_device, dtype) for h in (hq, hkv, hkv))
+    out1, bodies = _launched_bodies(lambda: flash_attention(q, k, v))
+    tensor_cores = dtype == torch.bfloat16
+    assert bodies == {"wgmma" if tensor_cores else "cuda-core": 1}
+    k[:, cut:] = 99.0
+    v[:, cut:] = -99.0
     out2 = flash_attention(q, k, v)
-    torch.testing.assert_close(out1[:, :128], out2[:, :128], rtol=1e-6,
+    torch.testing.assert_close(out1[:, :cut], out2[:, :cut], rtol=1e-6,
                                atol=1e-6)
+
+
+def test_flash_kernel_takes_unaligned_views(cuda_device):
+    """TMA reads only 16-byte aligned tensors: a contiguous view at an odd
+    offset gives the output of its aligned copy."""
+    rng = np.random.default_rng(3)
+    n = 1 * 128 * 4 * 128
+    flat = torch.from_numpy(rng.normal(size=n + 1).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    q = flat[1:].view(1, 128, 4, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k, v = (torch.from_numpy(rng.normal(size=(1, 128, 2, 128)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(2))
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               flash_attention(q.clone(), k, v),
+                               rtol=0, atol=0)
+
