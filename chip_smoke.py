@@ -44,8 +44,12 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            kernels count their own launches on the card
   parity   each kernel against its plain PyTorch version on the card, at
            the main paths' shapes and on edge cases: exact equality for
-           B1-B5 (B4 also on an index whose tail has dense-bitmap blocks and
-           on synthetic blocks), 2e-2 (bf16) and 2e-5 (f32) for B6 on
+           B1-B5 (B3's pos, hit and block-task prefix also past one CTA
+           tile and on key columns past its shared-memory budget, with the
+           fence stride each ran with; B4 also on an index whose tail has
+           dense-bitmap blocks and on synthetic blocks; the fused front end
+           against the probe + torch prefix, timed in turns with it and
+           with torch.searchsorted), 2e-2 (bf16) and 2e-5 (f32) for B6 on
            each case, with the body that ran (tensor cores, "wgmma", or
            CUDA cores, as the kernels count their own launches on the
            card, and required to be the one its dtype and D call for)
@@ -103,7 +107,7 @@ from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
     fused_build_columns, fused_encode_postings, hash_threshold)
 from repro_torch.kernels.postings_merge import (  # noqa: E402
-    block_decode, postings_probe)
+    block_decode, fence_shift, postings_probe, probe_tasks)
 from repro_torch.planner import (  # noqa: E402
     PostingsIndex, candidates_for, choose_plan, encode_store,
     f32_threshold, mask_to_hits, postings_equal, pruned_batch, pruned_topk,
@@ -244,6 +248,44 @@ def graph_ms(launch, reps: int = 20) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def turns_ms(fns: dict, reps: int) -> dict:
+    """Median device milliseconds of one call of each function, CUDA
+    events around each call, the functions called in turns (every rep
+    calls each once, in reversed order on odd reps) after one warm-up
+    call each."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(reps):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[k]()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def median_host_us(fn, calls: int = 1000) -> float:
+    """Median host microseconds of one call of ``fn``: the host clock
+    around each of ``calls`` calls after a warm-up, no synchronisation
+    inside the timed span (the card is synchronised every 50 calls)."""
+    fn()
+    sync()
+    ts = np.empty(calls)
+    for i in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        ts[i] = time.perf_counter_ns() - t0
+        if (i + 1) % 50 == 0:
+            sync()
+    sync()
+    return float(np.median(ts)) / 1e3
 
 
 def pctl(xs, q) -> float:
@@ -574,8 +616,8 @@ DEVICE_STAGES = ("stage_ms", "probe_b3_ms", "decode_b4_ms", "estimator_ms",
 def device_stages(index, b, t):
     """One forced-pruned batch on the device route, stage by stage as
     ``pruned_batch_device`` runs it: CUDA events between the stages on the
-    device timeline (staging upload, B3, B4 with its prefix sum, the o1
-    popcount and estimator, the hit-word packing, the fetch), then the
+    device timeline (staging upload, B3 with the block-task prefix, B4,
+    the o1 popcount and estimator, the hit-word packing, the fetch), then the
     host clock for unpacking the words and ``mask_to_hits``. Returns
     (ms per stage, host ms of the query sketch and of the planner probe,
     hits)."""
@@ -594,10 +636,11 @@ def device_stages(index, b, t):
     ev[1].record()
     qv, qt, qb, qs, thr = postings_merge.carve_query_blob(
         sq.blob, gq=sq.gq, cq=sq.cq, w=sq.w)
-    pos, hit = postings_probe(dpost.keys, qv.reshape(-1))
+    pos, hit, cum = probe_tasks(dpost.keys, qv.reshape(-1), dpost.row_blocks)
     ev[2].record()
     kcap = block_decode(pos, hit, dpost.row_blocks, dpost.first, dpost.meta,
-                        dpost.off, dpost.payload, gq=sq.gq, cq=sq.cq, m=m)
+                        dpost.off, dpost.payload, gq=sq.gq, cq=sq.cq, m=m,
+                        cum=cum)
     ev[3].record()
     o1 = postings_merge.bitmap_o1(x.buf, qb)
     s = postings_merge.estimate_scores(kcap, o1, x.values, x.thresh, qv, qt,
@@ -894,13 +937,43 @@ def _edge_pair_cases():
 
 
 def _edge_probe_cases():
-    """B3 edge cases: no keys; queries below the first key, above the last,
-    equal to PAD, and repeated."""
+    """B3 edge cases (keys, queries, row_blocks): no keys; queries below
+    the first key, above the last, equal to PAD, and repeated."""
     keys = np.asarray([1000, 2000, 3000, 2**32 - 3], np.uint32)
     q = np.asarray([0, 999, 1000, 1500, 2000, 2000, 3000, 3001, 2**32 - 3,
                     2**32 - 2, PAD, PAD], np.uint32)
-    return [(to_tensor(k).to(DEV), to_tensor(q).to(DEV))
-            for k in (keys, keys[:0], keys[:1])]
+    row_blocks = np.asarray([0, 2, 3, 6, 7], np.int32)
+    return [(to_tensor(keys[:u]).to(DEV), to_tensor(q).to(DEV),
+             torch.from_numpy(row_blocks[:u + 1]).to(DEV))
+            for u in (4, 0, 1)]
+
+
+def _probe_task_cases(keys, row_blocks) -> dict:
+    """Inputs (keys, queries, row_blocks) past batch 0's: n over one CTA
+    tile at the serving keys, and key columns past the shared-memory
+    budget (fence stride s > 0), each with hits, repeated hits, misses
+    and PAD lanes; query hashes and keys from a fixed seed."""
+    rng = np.random.default_rng(18)
+
+    def lanes(k, n):
+        hits = k[rng.integers(0, len(k), size=n // 2)]
+        rand = rng.integers(0, 2**32, size=n - n // 2 - 2, dtype=np.uint64)
+        q = np.concatenate([hits, rand.astype(np.uint32),
+                            np.asarray([PAD, PAD], np.uint32)])
+        return to_tensor(rng.permutation(q)).to(DEV)
+
+    out = {}
+    k = to_numpy(keys)
+    for n in (1_025, 16_384):
+        out[f"serving_keys_n{n}"] = (keys, lanes(k, n), row_blocks)
+    for u in (60_000, 250_000):
+        big = np.unique(rng.integers(0, 2**32 - 1, size=u + u // 8,
+                                     dtype=np.uint64).astype(np.uint32))[:u]
+        rb = np.concatenate([[0], np.cumsum(rng.integers(1, 4, size=len(big)))])
+        out[f"u{len(big)}_n4096"] = (to_tensor(big).to(DEV), lanes(big, 4_096),
+                                     torch.from_numpy(rb.astype(np.int32))
+                                     .to(DEV))
+    return out
 
 
 def _synthetic_postings() -> DevicePostings:
@@ -926,7 +999,7 @@ def _synthetic_postings() -> DevicePostings:
 
 def _task_blocks(pos, hit, row_blocks):
     """The block id of every decode task of a probe, in task order."""
-    cum = postings_merge.task_prefix(pos, hit, row_blocks).long()
+    cum = ref.task_prefix_ref(pos, hit, row_blocks).long()
     nblk = torch.diff(cum, prepend=cum.new_zeros(1))
     rs = row_blocks.long()[pos.long().clamp(0, max(row_blocks.numel() - 2, 0))]
     lane = torch.repeat_interleave(torch.arange(pos.numel(), device=pos.device),
@@ -1096,92 +1169,155 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     }
     # -- B3 at batch 0's flat query hashes, plus edge cases ---------------------
     dpost = index.core.sketches.device_postings(DEV)
+    keys, rb = dpost.keys, dpost.row_blocks
     q_flat = qp.values.reshape(-1)
-    pos, hit = postings_probe(dpost.keys, q_flat)
-    wpos, whit = ref.postings_probe_ref(dpost.keys, q_flat)
+    pos, hit = postings_probe(keys, q_flat)
+    wpos, whit, wcum = ref.probe_tasks_ref(keys, q_flat, rb)
     sync()
     require(torch.equal(pos, wpos) and torch.equal(hit, whit),
             "postings_probe kernel equals plain version at batch 0")
-    err = float((pos - wpos).abs().max())
-    for keys, qs in _edge_probe_cases():
+    tpos, thit, cum = probe_tasks(keys, q_flat, rb)
+    batch0_shift = postings_probe.last_fence_shift
+    sync()
+    require(torch.equal(tpos, wpos) and torch.equal(thit, whit)
+            and torch.equal(cum, wcum),
+            "probe_tasks kernel (pos, hit, cum) equals plain version at "
+            "batch 0")
+    err = float((tpos - wpos).abs().max() + (cum - wcum).abs().max())
+    for ekeys, qs, erb in _edge_probe_cases():
         require(all(torch.equal(a, b) for a, b in zip(
-            postings_probe(keys, qs), ref.postings_probe_ref(keys, qs))),
+            postings_probe(ekeys, qs), ref.postings_probe_ref(ekeys, qs))),
             "postings_probe kernel equals plain version on edge cases")
-    n, u = q_flat.numel(), dpost.keys.numel()
+        require(all(torch.equal(a, b) for a, b in zip(
+            probe_tasks(ekeys, qs, erb), ref.probe_tasks_ref(ekeys, qs, erb))),
+            "probe_tasks kernel equals plain version on edge cases")
+    cases = {"batch0": {"n": q_flat.numel(), "u": keys.numel(),
+                        "fence_shift": batch0_shift}}
+    for name, (ckeys, cq_flat, crb) in _probe_task_cases(keys, rb).items():
+        got = probe_tasks(ckeys, cq_flat, crb)
+        shift = postings_probe.last_fence_shift
+        want = ref.probe_tasks_ref(ckeys, cq_flat, crb)
+        sync()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"probe_tasks kernel equals plain version ({name})")
+        require(shift == fence_shift(ckeys.numel()),
+                f"probe_tasks ran with the fence stride of its keys ({name})")
+        cases[name] = {"n": cq_flat.numel(), "u": ckeys.numel(),
+                       "fence_shift": shift, "hit_lanes": int(got[1].sum())}
+    require(max(c["fence_shift"] for c in cases.values()) > 0
+            and max(c["n"] for c in cases.values()) > 1024,
+            "the probe ran past the shared-memory budget and past one tile")
+    n, u = q_flat.numel(), keys.numel()
     sign = -(1 << 31)       # u32 order as int32: flip the sign bit
-    ks, qs = dpost.keys ^ sign, q_flat ^ sign
+    ks, qs = keys ^ sign, q_flat ^ sign
     require(torch.equal(torch.searchsorted(ks, qs).to(torch.int32), pos),
             "torch.searchsorted gives the kernel's pos")
     lib = library.library()
-    pos_o, hit_o = torch.empty_like(pos), torch.empty_like(hit)
+    pos_o, hit_o, cum_o = (torch.empty_like(pos), torch.empty_like(hit),
+                           torch.empty_like(cum))
+    hit_lanes = int(hit.sum())
+    blocks = (rb, dpost.first, dpost.meta, dpost.off, dpost.payload)
+    kw = {"gq": gq, "cq": cq, "m": m}
+
+    def front():            # the pipeline's front end: B3 then B4
+        p, h, c = probe_tasks(keys, q_flat, rb)
+        return block_decode(p, h, *blocks, cum=c, **kw)
+
+    def front_old():        # before the fused probe: the prefix by torch ops
+        p, h = postings_probe(keys, q_flat)
+        return block_decode(p, h, *blocks, **kw)
+
+    require(torch.equal(front(), front_old()),
+            "the fused front end counts as the probe + torch prefix")
+    timed = turns_ms({"ms": lambda: probe_tasks(keys, q_flat, rb),
+                      "library_ms": lambda: torch.searchsorted(ks, qs),
+                      "front_ms": front, "front_old_ms": front_old}, 50)
     results["postings_probe"] = {
         "shape": [n, u], "max_abs_err": err, "parity": "exact",
-        "ms": cuda_ms(lambda: postings_probe(dpost.keys, q_flat), 50),
+        **timed,
         "kernel_graph_ms": graph_ms(lambda st: lib.postings_probe_launch(
-            dpost.keys.data_ptr(), u, q_flat.data_ptr(), n, pos_o.data_ptr(),
-            hit_o.data_ptr(), st)),
-        "plain_ms": cuda_ms(lambda: ref.postings_probe_ref(dpost.keys,
-                                                           q_flat), 20),
-        "library_ms": cuda_ms(lambda: torch.searchsorted(ks, qs), 50),
+            keys.data_ptr(), u, q_flat.data_ptr(), n, rb.data_ptr(),
+            pos_o.data_ptr(), hit_o.data_ptr(), cum_o.data_ptr(), None,
+            keys.device.index, st)),
+        "host_us": median_host_us(lambda: probe_tasks(keys, q_flat, rb)),
+        "host_us_pos_hit_only": median_host_us(
+            lambda: postings_probe(keys, q_flat)),
+        "library_host_us": median_host_us(lambda: torch.searchsorted(ks, qs)),
+        "plain_ms": cuda_ms(lambda: ref.probe_tasks_ref(keys, q_flat, rb), 20),
         "library_note": "torch.searchsorted on the sign-flipped int32 keys "
-                        "and queries: pos only, no hit flag",
-        "hit_lanes": int(hit.sum()),
-        # Keys and queries read once, pos (4 B) and hit (1 B) written once;
-        # a binary search does about log2(U + 1) compares per query.
-        "bytes": 4 * u + 4 * n + 4 * n + n,
-        "ops": n * max(1, int(np.ceil(np.log2(u + 1)))),
+                        "and queries: pos only, no hit flag, no prefix",
+        "front_note": "front_ms: probe_tasks + block_decode(cum=); "
+                      "front_old_ms: postings_probe + block_decode(cum=None), "
+                      "whose prefix is the torch ops of ref.task_prefix_ref",
+        "hit_lanes": hit_lanes, "cases": cases,
+        # Keys and queries read once, row_blocks at each hit lane (two
+        # words), pos (4 B), hit (1 B) and cum (4 B) written once; a binary
+        # search of about log2(U + 1) compares per lane, and the scan's
+        # five shuffle adds and a carry add.
+        "bytes": 4 * u + 4 * n + 8 * hit_lanes + 4 * n + n + 4 * n,
+        "ops": n * (max(1, int(np.ceil(np.log2(u + 1)))) + 6),
     }
 
     # -- B4 at batch 0, on a store with dense blocks, on synthetic blocks ------
-    kargs = (pos, hit, dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
-             dpost.payload)
-    kw = {"gq": gq, "cq": cq, "m": m}
-    kc = block_decode(*kargs, **kw)
+    kargs = (pos, hit) + blocks
+    kc = block_decode(*kargs, cum=cum, **kw)
     want = ref.kcount_ref(*kargs, **kw)
     sync()
     require(torch.equal(kc, want),
             "block_decode kernel equals plain version at batch 0")
+    require(torch.equal(block_decode(*kargs, **kw), want),
+            "block_decode kernel without the probe's prefix equals plain "
+            "version at batch 0")
     err = float((kc - want).abs().max())
     dense_check = _dense_store_check()
     syn = _synthetic_postings()
     lanes = to_tensor(np.asarray([10, 11, 12, 13, 14, 15, 16, 17,
                                   17, 12, 99, PAD, 10, 13, PAD, 16],
                                  np.uint32)).to(DEV)
-    spos, shit = postings_probe(syn.keys, lanes)
+    spos, shit, scum = probe_tasks(syn.keys, lanes, syn.row_blocks)
     sargs = (spos, shit, syn.row_blocks, syn.first, syn.meta, syn.off,
              syn.payload)
-    require(torch.equal(block_decode(*sargs, gq=2, cq=8, m=600_000),
+    require(torch.equal(block_decode(*sargs, gq=2, cq=8, m=600_000, cum=scum),
                         ref.kcount_ref(*sargs, gq=2, cq=8, m=600_000)),
             "block_decode kernel equals plain version on synthetic blocks "
             "(one entry, bw = 0, bw = 31, straddled words, a dense block)")
-    blk = _task_blocks(pos, hit, dpost.row_blocks)
+    blk = _task_blocks(pos, hit, rb)
     words = int((dpost.off[blk + 1] - dpost.off[blk]).sum())
     entries = int(((dpost.meta[blk] & 0x7F) + 1).sum())
-    hit_lanes = int(hit.sum())
-    cum = postings_merge.task_prefix(pos, hit, dpost.row_blocks)
-    kc_o = torch.zeros_like(kc)
-    results["block_decode"] = {
-        "shape": [n, int(blk.numel()), m, gq], "max_abs_err": err,
-        "parity": "exact",
-        "ms": cuda_ms(lambda: block_decode(*kargs, **kw), 50),
-        "kernel_graph_ms": graph_ms(lambda st: lib.block_decode_launch(
-            pos.data_ptr(), cum.data_ptr(), n, dpost.row_blocks.data_ptr(),
+    kc_o = torch.empty_like(kc)
+
+    def bare_decode(zero_counts: int):
+        return lambda st: lib.block_decode_launch(
+            pos.data_ptr(), cum.data_ptr(), n, rb.data_ptr(),
             dpost.first.data_ptr(), dpost.meta.data_ptr(),
             dpost.off.data_ptr(), dpost.first.numel(),
             dpost.payload.data_ptr(), dpost.payload.numel(), gq, cq, m,
-            kc_o.data_ptr(), st)),
+            kc_o.data_ptr(), zero_counts, keys.device.index, st)
+
+    # What the decode body itself must move: the touched blocks' payload
+    # words and headers (first, meta, off), pos and the prefix sum per
+    # lane, the row start of each hit lane and one 4-B atomic update per
+    # decoded entry. The function also writes the [m, gq] counts once (the
+    # C entry's memset), which ``bytes`` adds.
+    body_bytes = (4 * words + 12 * int(blk.numel()) + 8 * n + 4 * hit_lanes
+                  + 4 * entries)
+    results["block_decode"] = {
+        "shape": [n, int(blk.numel()), m, gq], "max_abs_err": err,
+        "parity": "exact",
+        "ms": cuda_ms(lambda: block_decode(*kargs, cum=cum, **kw), 50),
+        # The bare launch as the wrapper makes it: the counts' memset and
+        # the decode; and the decode body alone (no memset).
+        "kernel_graph_ms": graph_ms(bare_decode(1)),
+        "body_graph_ms": graph_ms(bare_decode(0)),
+        "body_bound_ms": body_bytes / HBM_BYTES_PER_S * 1e3,
+        "body_bytes": body_bytes, "memset_bytes": 4 * m * gq,
+        "host_us": median_host_us(
+            lambda: block_decode(*kargs, cum=cum, **kw)),
         "plain_ms": cuda_ms(lambda: ref.kcount_ref(*kargs, **kw), 5),
-        # The wrapper zeroes the [m, gq] counts before the launch.
-        "zero_fill_ms": cuda_ms(lambda: torch.zeros(
-            (m, gq), dtype=torch.int32, device=DEV), 50),
         "tasks": int(blk.numel()), "entries": entries,
         "payload_words": words, "hit_lanes": hit_lanes,
         "dense_store": dense_check,
-        # The touched blocks' payload words and headers (first, meta, off),
-        # pos and the prefix sum per lane, the row start of each hit lane,
-        # and one 4-B atomic update per decoded entry.
-        "bytes": 4 * words + 12 * int(blk.numel()) + 8 * n + 4 * hit_lanes
-        + 4 * entries,
+        "bytes": body_bytes + 4 * m * gq,
         # Per entry: the unpack (shift, or, mask), its share of the
         # five-step scan, the id and the atomic: about 16 operations.
         "ops": 16 * entries,
@@ -1573,7 +1709,9 @@ def sass_counts(symbol: str) -> dict:
 _ENTRY_KEYS = ("shape", "max_abs_err", "parity", "ms", "plain_ms", "bytes",
                "ops", "library_ms", "library_note", "peak_ops_per_s")
 # Keys that a kernel's entry carries beside those, where its result has them.
-_EXTRA_KEYS = ("body", "achieved_tflops", "sass", "library_rel_rms_err")
+_EXTRA_KEYS = ("body", "achieved_tflops", "sass", "library_rel_rms_err",
+               "kernel_graph_ms", "body_graph_ms", "body_bound_ms", "host_us",
+               "library_host_us", "front_ms", "front_old_ms")
 
 
 def main(argv=None) -> int:

@@ -14,8 +14,9 @@
 //
 // Inputs: per query-hash lane (n = gq · cq lanes) the probe's row `pos`
 // and `cum`, the inclusive prefix sum of the lanes' block counts (0 for a
-// lane that missed); the tail store's row_blocks, first, meta, off and
-// payload. Output: kcount i32 [m · gq], zeroed by the caller.
+// lane that missed), both written by the probe (postings_probe.cu); the
+// tail store's row_blocks, first, meta, off and payload. Output: kcount
+// i32 [m · gq], which the entry zeroes on the launch's stream first.
 //
 // Bound on the H100: memory and latency. The function needs the payload
 // words and headers of the touched blocks and one 4-byte atomic update per
@@ -39,28 +40,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cta_scan.cuh"
+#include "launch_util.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;          // entries per block = threads per CTA
 constexpr int kDenseMaxWords = 124;  // largest dense body
 constexpr int kWarps = kBlock / 32;
-
-// Inclusive sum of `v` over the CTA's threads; every thread must call it.
-__device__ uint32_t cta_inclusive_scan(uint32_t v, uint32_t* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t t = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += t;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  uint32_t add = 0;
-  for (int w = 0; w < warp; ++w) add += warp_tot[w];
-  __syncthreads();  // warp_tot may be written again by the next scan
-  return v + add;
-}
 
 __device__ __forceinline__ void count_id(uint32_t id_bits, int64_t m, int gq,
                                          int g, int32_t* kcount) {
@@ -143,15 +130,27 @@ __global__ void __launch_bounds__(kBlock) block_decode_kernel(
 
 // pos, cum: i32 [n] (cum inclusive, hit-masked block counts); row_blocks
 // i32 [U+1]; first i32 [nb]; meta u32 [nb]; off i32 [nb+1]; payload u32
-// [p_words]; kcount i32 [m · gq], zeroed. Launches on `stream` and returns
-// cudaGetLastError(). The caller skips the launch when n or nb is 0.
+// [p_words]; kcount i32 [m · gq], zeroed here by cudaMemsetAsync before the
+// decode when `zero_counts` is set (the wrapper always sets it; 0 adds onto
+// the counts as they are, which times the decode alone). Both go on
+// `stream` of card `device` (made current for the call); returns the
+// memset's error or cudaGetLastError(). The caller skips the call when n or
+// nb is 0.
 extern "C" int block_decode_launch(const void* pos, const void* cum,
                                    int64_t n, const void* row_blocks,
                                    const void* first, const void* meta,
                                    const void* off, int64_t nb,
                                    const void* payload, int64_t p_words,
                                    int gq, int cq, int64_t m, void* kcount,
-                                   void* stream) {
+                                   int zero_counts, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  if (zero_counts) {
+    const cudaError_t err = cudaMemsetAsync(
+        kcount, 0, (size_t)m * (size_t)gq * sizeof(int32_t),
+        (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   // The task count stays on the device; the grid is fixed and strides.
   const unsigned blocks = 132 * 8;
   block_decode_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(

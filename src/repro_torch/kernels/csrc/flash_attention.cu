@@ -57,6 +57,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch_util.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
@@ -74,23 +75,6 @@ constexpr float kNegInf = -1.0e30f;
 // cores): thread 0 of each launch's first block adds one, so a reader
 // sees which kernel ran, not which one the host meant to launch.
 __device__ unsigned long long g_body_launches[2];
-
-// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
-// device, once per device: `ready` holds one bit per device already set
-// (the attribute never changes), so a launch does not repeat the call.
-cudaError_t raise_smem_limit(const void* kernel, int bytes,
-                             std::atomic<uint64_t>& ready) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

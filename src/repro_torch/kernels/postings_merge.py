@@ -2,8 +2,9 @@
 ``repro.kernels.postings_merge``): candidate counting for the pruned query
 route without leaving the card, and without flat posting lists.
 
-    probe     each query hash's row in the sorted tail-key column
-              (:func:`postings_probe`: kernel B3, ``csrc/postings_probe.cu``)
+    probe     each query hash's row in the sorted tail-key column, and the
+              prefix sum of the hit rows' block counts (:func:`probe_tasks`:
+              kernel B3, ``csrc/postings_probe.cu``, one launch)
     decode    every block of every hit row, decoded and scattered into the
               exact K∩ count matrix (:func:`block_decode`: kernel B4,
               ``csrc/block_decode.cu``, which also does the block-task
@@ -32,12 +33,14 @@ between the staged upload and the fetch reads a value on the host.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.estimators import popcount
 from repro_torch.core.hashing import TWO32, as_bits, as_u64
 from repro_torch.kernels import ref
-from repro_torch.kernels.library import check, library
+from repro_torch.kernels.library import check, current_stream_ptr, library
 
 # XOR with the sign bit maps u32 bit patterns held in int32 onto int32
 # values in the same (unsigned) order; PAD goes to the top.
@@ -52,46 +55,102 @@ def _require(name: str, t: torch.Tensor, dtype, device, dim: int = 1):
                          f"{t.device}")
 
 
+def fence_shift(u: int) -> int:
+    """The probe's fence stride s for a u-key column, as its C entry picks
+    it: the smallest shift for which every 2^s-th key fits in the kernel's
+    shared-memory budget (0: the whole column; the last s search levels
+    then run in device memory). Asks the kernel library, so needs the card's
+    toolchain."""
+    return library().postings_probe_fence_shift(u)
+
+
+# The probe's C entry stores the fence stride it ran with here.
+_shift_out = ctypes.c_int32(-1)
+_SHIFT_OUT = ctypes.addressof(_shift_out)
+
+
 def postings_probe(keys: torch.Tensor, q_flat: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(pos i32[n], hit bool[n]): for each query hash, the number of keys
-    below it and whether it is a key (never for PAD). ``keys`` is the
-    ascending u32 tail-key column, ``q_flat`` the batch's query hashes,
-    both int32 bit patterns on one device. U = 0 or n = 0 launches
-    nothing."""
-    _require("keys", keys, torch.int32, keys.device)
-    _require("q_flat", q_flat, torch.int32, keys.device)
-    if keys.device.type == "cpu":
+    below it and whether it is a key (never for PAD), as the reference's
+    ``_probe_pallas``. ``keys`` is the ascending u32 tail-key column,
+    ``q_flat`` the batch's query hashes, both int32 bit patterns on one
+    device. U = 0 or n = 0 launches nothing. Every launch of the probe
+    kernel, here or in :func:`probe_tasks`, adds one to
+    ``postings_probe.launches`` and sets ``postings_probe.last_fence_shift``
+    to the fence stride it ran with."""
+    dev = keys.device
+    _require("keys", keys, torch.int32, dev)
+    _require("q_flat", q_flat, torch.int32, dev)
+    if dev.type == "cpu":
         return ref.postings_probe_ref(keys, q_flat)
-    if keys.device.type != "cuda":
-        raise ValueError(f"no kernel for device {keys.device}")
+    return _probe(keys, q_flat, None)
+
+
+def probe_tasks(keys: torch.Tensor, q_flat: torch.Tensor,
+                row_blocks: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pos i32[n], hit bool[n], cum i32[n]): :func:`postings_probe` and the
+    inclusive prefix sum of the lanes' block counts (``row_blocks[pos+1] −
+    row_blocks[pos]`` for a lane that hit, else 0), in one launch: lane i
+    owns block tasks [cum[i-1], cum[i]) of :func:`block_decode`.
+    ``row_blocks`` i32[U+1] is the tail store's block range per key."""
+    dev = keys.device
+    _require("keys", keys, torch.int32, dev)
+    _require("q_flat", q_flat, torch.int32, dev)
+    _require("row_blocks", row_blocks, torch.int32, dev)
+    if row_blocks.numel() != keys.numel() + 1:
+        raise ValueError("probe_tasks: row_blocks must hold U + 1 entries")
+    if dev.type == "cpu":
+        return ref.probe_tasks_ref(keys, q_flat, row_blocks)
+    return _probe(keys, q_flat, row_blocks)
+
+
+def _probe(keys, q_flat, row_blocks):
+    """Launch the probe kernel on the keys' card: (pos, hit), and cum too
+    when ``row_blocks`` is given. The kernel writes every lane."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     n, u = q_flat.numel(), keys.numel()
-    pos = torch.zeros(n, dtype=torch.int32, device=keys.device)
-    hit = torch.zeros(n, dtype=torch.bool, device=keys.device)
-    if n and u:
-        with torch.cuda.device(keys.device):
-            err = library().postings_probe_launch(
-                keys.data_ptr(), u, q_flat.data_ptr(), n, pos.data_ptr(),
-                hit.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        check(err, "postings_probe_launch")
-        postings_probe.launches += 1
-    return pos, hit
+    tasks = row_blocks is not None
+    if not (n and u):
+        # Nothing to search: every lane misses, nothing is launched.
+        out = (torch.zeros(n, dtype=torch.int32, device=dev),
+               torch.zeros(n, dtype=torch.bool, device=dev))
+        return out + (torch.zeros(n, dtype=torch.int32, device=dev),) \
+            if tasks else out
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    cum = torch.empty(n, dtype=torch.int32, device=dev) if tasks else None
+    check(library().postings_probe_launch(
+        keys.data_ptr(), u, q_flat.data_ptr(), n,
+        row_blocks.data_ptr() if tasks else None, pos.data_ptr(),
+        hit.data_ptr(), cum.data_ptr() if tasks else None, _SHIFT_OUT,
+        dev.index, current_stream_ptr(dev.index)), "postings_probe_launch")
+    postings_probe.launches += 1
+    postings_probe.last_fence_shift = _shift_out.value
+    return (pos, hit, cum) if tasks else (pos, hit)
 
 
 postings_probe.launches = 0
+postings_probe.last_fence_shift = None
 
 
 def block_decode(pos, hit, row_blocks, first, meta, off, payload, *,
-                 gq: int, cq: int, m: int) -> torch.Tensor:
+                 gq: int, cq: int, m: int, cum=None) -> torch.Tensor:
     """i32[m, gq] K∩ counts of a query batch against every record.
 
     Lane ``i`` of ``pos``/``hit`` (the probe of query hash ``i``, which
     belongs to query ``i // cq``) expands to the blocks of its key when it
     hit; each decoded record id adds one to its cell. The block arrays are
-    a :class:`repro_torch.core.arena.DevicePostings`' tail store. On CUDA
-    the per-lane block counts are prefix-summed on the card and the
-    kernel strides over the tasks up to that sum, read in device memory.
-    No lanes or no blocks launch nothing.
+    a :class:`repro_torch.core.arena.DevicePostings`' tail store. ``cum``
+    is the lanes' block-task prefix as :func:`probe_tasks` writes it;
+    without it the prefix is computed here by the plain torch ops
+    (:func:`repro_torch.kernels.ref.task_prefix_ref`). On CUDA the kernel
+    strides over the tasks up to that prefix's total, read in device
+    memory, after zeroing the counts on the same stream. No lanes or no
+    blocks launch nothing.
     """
     dev = pos.device
     _require("pos", pos, torch.int32, dev)
@@ -99,40 +158,34 @@ def block_decode(pos, hit, row_blocks, first, meta, off, payload, *,
     for name, t in (("row_blocks", row_blocks), ("first", first),
                     ("meta", meta), ("off", off), ("payload", payload)):
         _require(name, t, torch.int32, dev)
+    if cum is not None:
+        _require("cum", cum, torch.int32, dev)
     nb = first.numel()
     if (hit.shape != pos.shape or pos.numel() != gq * cq
-            or meta.numel() != nb or off.numel() != nb + 1):
+            or meta.numel() != nb or off.numel() != nb + 1
+            or (cum is not None and cum.shape != pos.shape)):
         raise ValueError("block_decode: inconsistent shapes")
     if dev.type == "cpu":
         return ref.kcount_ref(pos, hit, row_blocks, first, meta, off, payload,
-                              gq=gq, cq=cq, m=m)
+                              gq=gq, cq=cq, m=m, cum=cum)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    kcount = torch.zeros((m, gq), dtype=torch.int32, device=dev)
     n = pos.numel()
-    if n and nb and m:
-        cum = task_prefix(pos, hit, row_blocks)
-        with torch.cuda.device(dev):
-            err = library().block_decode_launch(
-                pos.data_ptr(), cum.data_ptr(), n, row_blocks.data_ptr(),
-                first.data_ptr(), meta.data_ptr(), off.data_ptr(), nb,
-                payload.data_ptr(), payload.numel(), gq, cq, m,
-                kcount.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        check(err, "block_decode_launch")
-        block_decode.launches += 1
+    if not (n and nb and m):
+        return torch.zeros((m, gq), dtype=torch.int32, device=dev)
+    if cum is None:
+        cum = ref.task_prefix_ref(pos, hit, row_blocks)
+    kcount = torch.empty((m, gq), dtype=torch.int32, device=dev)
+    check(library().block_decode_launch(
+        pos.data_ptr(), cum.data_ptr(), n, row_blocks.data_ptr(),
+        first.data_ptr(), meta.data_ptr(), off.data_ptr(), nb,
+        payload.data_ptr(), payload.numel(), gq, cq, m, kcount.data_ptr(), 1,
+        dev.index, current_stream_ptr(dev.index)), "block_decode_launch")
+    block_decode.launches += 1
     return kcount
 
 
 block_decode.launches = 0
-
-
-def task_prefix(pos, hit, row_blocks) -> torch.Tensor:
-    """i32[n] inclusive prefix sum of the lanes' block counts (0 for a
-    lane that missed): lane i owns block tasks [cum[i-1], cum[i])."""
-    u = row_blocks.numel() - 1
-    pos_c = pos.long().clamp(0, max(u - 1, 0))
-    nblk = torch.where(hit, row_blocks[pos_c + 1] - row_blocks[pos_c], 0)
-    return torch.cumsum(nblk, 0, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -214,9 +267,10 @@ def pipeline_scores(dpost, x_values, x_thresh, x_buf, q_values, q_thresh,
         # K∩ ≡ 0: the score is the o1 base everywhere (D̂∩ = 0).
         return o1.to(torch.float32) \
             / q_sizes.to(torch.float32).clamp_min(1.0)[None, :]
-    pos, hit = postings_probe(dpost.keys, q_values.reshape(-1))
+    pos, hit, cum = probe_tasks(dpost.keys, q_values.reshape(-1),
+                                dpost.row_blocks)
     kcap = block_decode(pos, hit, dpost.row_blocks, dpost.first, dpost.meta,
-                        dpost.off, dpost.payload, gq=gq, cq=cq, m=m)
+                        dpost.off, dpost.payload, gq=gq, cq=cq, m=m, cum=cum)
     return estimate_scores(kcap, o1, x_values, x_thresh, q_values, q_thresh,
                            q_sizes)
 

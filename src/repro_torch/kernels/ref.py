@@ -132,6 +132,29 @@ def postings_probe_ref(keys, q_flat) -> tuple[torch.Tensor, torch.Tensor]:
     return pos, hit
 
 
+def task_prefix_ref(pos, hit, row_blocks) -> torch.Tensor:
+    """i32[n] inclusive prefix sum of the lanes' block counts, as the
+    reference's ``_pipeline_scores`` forms ``cum`` after the probe:
+    ``row_blocks[pos+1] − row_blocks[pos]`` for a lane that hit, else 0.
+    ``row_blocks`` i32[U+1]; no keys give 0 everywhere."""
+    u = row_blocks.numel() - 1
+    if u == 0:
+        return torch.zeros(pos.shape, dtype=torch.int32, device=pos.device)
+    pos_c = pos.long().clamp(0, u - 1)
+    nblk = torch.where(hit, row_blocks[pos_c + 1] - row_blocks[pos_c], 0)
+    return torch.cumsum(nblk, 0, dtype=torch.int32)
+
+
+def probe_tasks_ref(keys, q_flat, row_blocks
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(pos i32[n], hit bool[n], cum i32[n]): the probe
+    (:func:`postings_probe_ref`) and then the block-task prefix
+    (:func:`task_prefix_ref`), the function of the B3 kernel when it is
+    given ``row_blocks``."""
+    pos, hit = postings_probe_ref(keys, q_flat)
+    return pos, hit, task_prefix_ref(pos, hit, row_blocks)
+
+
 def decode_sparse_ref(first, off, bw, cnt, payload) -> torch.Tensor:
     """i32[tb, BLOCK] ids of sparse blocks, as ``_decode_sparse_jnp``:
     unpack the count-1 deltas of ``bw`` bits (two straddled words joined
@@ -182,7 +205,7 @@ def decode_dense_ref(first, off, wcnt, payload, *, m: int) -> torch.Tensor:
 
 
 def kcount_ref(pos, hit, row_blocks, first, meta, off, payload, *,
-               gq: int, cq: int, m: int) -> torch.Tensor:
+               gq: int, cq: int, m: int, cum=None) -> torch.Tensor:
     """i32[m, gq] K∩ counts: the block-task expand, both decode streams
     and the scatter of the reference's ``_pipeline_scores``, over all
     tasks at once (this plain version reads the task count on the host).
@@ -191,6 +214,9 @@ def kcount_ref(pos, hit, row_blocks, first, meta, off, payload, *,
     its key's blocks; every decoded record id adds one to its
     (record, query) cell. ``pos``/``hit`` come from the probe; the block
     arrays are a :class:`DevicePostings`' (int32, u32 as bit patterns).
+    ``cum``, the probe's block-task prefix (:func:`probe_tasks_ref`), gives
+    the lanes' block counts as the B4 kernel reads them; without it they
+    come from ``hit`` and ``row_blocks``.
     """
     dev = pos.device
     kflat = torch.zeros(m * gq, dtype=torch.int64, device=dev)
@@ -198,10 +224,15 @@ def kcount_ref(pos, hit, row_blocks, first, meta, off, payload, *,
     if pos.numel() == 0 or nb == 0:
         return kflat.view(m, gq).to(torch.int32)
     pos_c = pos.long().clamp(0, max(u - 1, 0))
-    rs = torch.where(hit, row_blocks.long()[pos_c], 0)
-    re = torch.where(hit, row_blocks.long()[pos_c + 1], 0)
-    nblk = re - rs
-    cum = torch.cumsum(nblk, 0)
+    if cum is None:
+        rs = torch.where(hit, row_blocks.long()[pos_c], 0)
+        re = torch.where(hit, row_blocks.long()[pos_c + 1], 0)
+        nblk = re - rs
+        cum = torch.cumsum(nblk, 0)
+    else:
+        cum = cum.long()
+        nblk = torch.diff(cum, prepend=cum.new_zeros(1))
+        rs = torch.where(nblk > 0, row_blocks.long()[pos_c], 0)
     total = int(cum[-1])
     t = torch.arange(total, dtype=torch.int64, device=dev)
     lane = torch.searchsorted(cum, t, right=True)

@@ -267,6 +267,95 @@ def test_probe_kernel_matches_plain(cuda_device, u):
     assert pm.postings_probe.launches == before + (1 if u else 0)
 
 
+@pytest.mark.parametrize("n", [1, 896, 1025, 16_384])
+@pytest.mark.parametrize("u", [0, 1, 700, 5000, 60_000])
+def test_probe_tasks_kernel_matches_plain(cuda_device, u, n):
+    """pos, hit and the block-task prefix in one launch, against the plain
+    version: n across the CTA's 1,024-lane tiles, U past the shared-memory
+    budget (60,000 keys: fence stride 1), with repeated hits, misses and
+    PAD lanes."""
+    rng = np.random.default_rng(u + n)
+    keys = np.unique(rng.integers(1000, 2**32 - 1000, size=u + u // 8,
+                                  dtype=np.uint64)).astype(np.uint32)[:u]
+    assert keys.shape[0] == u
+    row_blocks = np.concatenate([[0], np.cumsum(
+        rng.integers(1, 4, size=u))]).astype(np.int32)
+    q = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    if u:
+        q[::2] = keys[rng.integers(0, u, size=q[::2].shape[0])]
+        q[1::7] = keys[u // 2]                  # one key many times
+    q[3::11] = PAD
+    k = to_tensor(keys).to(cuda_device)
+    qt = to_tensor(q).to(cuda_device)
+    rb = torch.from_numpy(row_blocks).to(cuda_device)
+    before = pm.postings_probe.launches
+    got = pm.probe_tasks(k, qt, rb)
+    assert pm.postings_probe.launches == before + (1 if u else 0)
+    if u:
+        assert pm.postings_probe.last_fence_shift == pm.fence_shift(u)
+        assert (pm.postings_probe.last_fence_shift > 0) == (u == 60_000)
+    want = ref.probe_tasks_ref(k, qt, rb)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert bool(got[1].any()) == bool(u)
+    # The pos/hit door runs the same kernel without the prefix.
+    pos, hit = pm.postings_probe(k, qt)
+    assert torch.equal(pos, want[0]) and torch.equal(hit, want[1])
+
+
+# The probe's shared-memory budget: 232,448 B less 1 KB, 4 B a key.
+PROBE_SMEM_KEYS = 57_856
+
+
+@pytest.mark.parametrize("u,s", [(0, 0), (2424, 0), (PROBE_SMEM_KEYS, 0),
+                                 (PROBE_SMEM_KEYS + 1, 1), (60_000, 1),
+                                 (250_000, 3), (10**7, 8)])
+def test_fence_shift_keeps_the_fences_in_shared_memory(cuda_device, u, s):
+    """The C entry's fence stride is the smallest whose fences fit."""
+    assert pm.fence_shift(u) == s
+    assert -(-u // 2**s) <= PROBE_SMEM_KEYS
+    assert s == 0 or -(-u // 2**(s - 1)) > PROBE_SMEM_KEYS
+
+
+@pytest.mark.parametrize("corpus", ["synthetic", "netflix_like"])
+def test_block_decode_takes_the_probe_prefix(cuda_device, corpus):
+    if corpus == "synthetic":
+        dpost = _synthetic_postings(cuda_device)
+        q_flat = to_tensor(np.asarray([10, 11, 12, 13, 14, 15, 16, 17,
+                                       17, 12, 99, PAD, 10, 13, PAD, 16],
+                                      np.uint32)).to(cuda_device)
+        gq, cq, m = 2, 8, 600_000
+    else:
+        recs = generate_dataset(m=4000, n_elems=3000, alpha_freq=1.14,
+                                alpha_size=2.5, size_min=5, size_max=80,
+                                seed=3)
+        index = api.build("gbkmv", recs, int(0.15 * sum(map(len, recs))),
+                          postings="eager")
+        dpost = index.core.sketches.device_postings(cuda_device)
+        qp = gbkmv.sketch_query_batch(
+            index.core, make_query_workload(recs, 16, seed=2)).to(cuda_device)
+        gq, cq = qp.values.shape
+        q_flat, m = qp.values.reshape(-1), index.num_records
+    pos, hit, cum = pm.probe_tasks(dpost.keys, q_flat, dpost.row_blocks)
+    blocks = (dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
+              dpost.payload)
+    before = pm.block_decode.launches
+    got = pm.block_decode(pos, hit, *blocks, gq=gq, cq=cq, m=m, cum=cum)
+    assert pm.block_decode.launches == before + 1
+    assert torch.equal(got, pm.block_decode(pos, hit, *blocks, gq=gq, cq=cq,
+                                            m=m))
+    assert torch.equal(got, ref.kcount_ref(pos, hit, *blocks, gq=gq, cq=cq,
+                                           m=m))
+    assert int(got.sum()) > 0
+    # The counts are zeroed on the card before every decode: a call into
+    # memory that held other values (the allocator hands back the block
+    # just freed) gives the same counts.
+    junk = torch.full((m, gq), 7, dtype=torch.int32, device=cuda_device)
+    del junk
+    assert torch.equal(got, pm.block_decode(pos, hit, *blocks, gq=gq, cq=cq,
+                                            m=m, cum=cum))
+
+
 def _synthetic_postings(device) -> DevicePostings:
     """Hand-made tail rows (one key each): one-entry blocks, repeated ids
     (bw = 0), a 31-bit delta, widths that straddle words (7, 13, 25), a

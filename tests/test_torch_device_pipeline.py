@@ -110,6 +110,64 @@ def test_probe_ref_matches_reference(u):
     assert not hit[-5 - (6 if u else 0):][3:5].any()     # PAD never hits
 
 
+def _reference_cum(keys, pos, hit, row_blocks):
+    """The block-task prefix as the reference's ``_pipeline_scores`` forms
+    it after the probe (src/repro/kernels/postings_merge.py)."""
+    u = keys.shape[0]
+    pos_c = jnp.clip(pos, 0, max(u - 1, 0))
+    if u:
+        rs = jnp.where(hit, row_blocks[pos_c], 0)
+        re = jnp.where(hit, row_blocks[pos_c + 1], 0)
+    else:
+        rs = jnp.zeros(pos.shape, jnp.int32)
+        re = rs
+    return jnp.cumsum(re - rs)
+
+
+@pytest.mark.parametrize("n", [0, 311])
+@pytest.mark.parametrize("u", [0, 1, 700])
+def test_probe_tasks_ref_matches_reference(u, n):
+    rng = np.random.default_rng(u + 10 * n)
+    keys = np.unique(rng.integers(1000, 2**32 - 1000, size=u,
+                                  dtype=np.uint64)).astype(np.uint32)
+    row_blocks = np.concatenate([[0], np.cumsum(
+        rng.integers(1, 4, size=u))]).astype(np.int32)
+    q = rng.integers(0, 2**32, size=max(n - 8, 0),
+                     dtype=np.uint64).astype(np.uint32)
+    if n:
+        extra = [0, PAD, PAD, 2**32 - 2]
+        extra += [keys[0], keys[-1], keys[u // 2], keys[u // 2]] if u \
+            else [1, 2, 3, 4]
+        q = np.concatenate([q, np.asarray(extra, np.uint32)])
+    assert q.shape[0] == n
+    pos, hit, cum = ref.probe_tasks_ref(to_tensor(keys), to_tensor(q),
+                                        torch.from_numpy(row_blocks))
+    assert cum.dtype == torch.int32 and cum.shape == (n,)
+    wpos, whit = ref_pm._probe_jnp(jnp.asarray(keys), jnp.asarray(q))
+    forms = [(wpos, whit)]
+    if u and n:
+        forms.append(ref_pm._probe_pallas(jnp.asarray(keys), jnp.asarray(q),
+                                          interpret=True))
+    for fpos, fhit in forms:
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(fpos))
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(fhit))
+    want = _reference_cum(jnp.asarray(keys), wpos, whit,
+                          jnp.asarray(row_blocks))
+    np.testing.assert_array_equal(cum.numpy(), np.asarray(want))
+    if u and n:
+        assert int(cum[-1]) > 0          # the repeated keys own blocks
+    # The wrapper takes the plain version on CPU tensors and launches
+    # nothing; a row_blocks of the wrong length raises.
+    before = pm.postings_probe.launches
+    got = pm.probe_tasks(to_tensor(keys), to_tensor(q),
+                         torch.from_numpy(row_blocks))
+    assert all(torch.equal(a, b) for a, b in zip(got, (pos, hit, cum)))
+    assert pm.postings_probe.launches == before
+    with pytest.raises(ValueError):
+        pm.probe_tasks(to_tensor(keys), to_tensor(q),
+                       torch.from_numpy(row_blocks[:-1]).contiguous())
+
+
 # ---------------------------------------------------------------------------
 # B4: the decode's plain versions and the K∩ counts
 # ---------------------------------------------------------------------------
@@ -210,6 +268,31 @@ def test_kcount_ref_matches_reference_merge(which, corpus, indexes,
     assert want.sum() > 0
 
 
+@pytest.mark.parametrize("which", ["corpus", "dense"])
+def test_block_decode_takes_the_probe_prefix(which, corpus, indexes,
+                                             dense_indexes):
+    port, refi = indexes if which == "corpus" else dense_indexes
+    queries = corpus[2] if which == "corpus" else \
+        [r[: max(2, len(r) // 2)] for r in dense_corpus()[:6]]
+    dpost = port.core.sketches.device_postings(CPU)
+    qp, _, _, _ = port._plan_queries(queries)
+    gq, cq = qp.values.shape
+    pos, hit, cum = pm.probe_tasks(dpost.keys, qp.values.reshape(-1),
+                                   dpost.row_blocks)
+    blocks = (dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
+              dpost.payload)
+    got = pm.block_decode(pos, hit, *blocks, gq=gq, cq=cq,
+                          m=port.num_records, cum=cum)
+    np.testing.assert_array_equal(
+        got.numpy(), pm.block_decode(pos, hit, *blocks, gq=gq, cq=cq,
+                                     m=port.num_records).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), _merge_counts(refi, queries, port.num_records))
+    with pytest.raises(ValueError):
+        pm.block_decode(pos, hit, *blocks, gq=gq, cq=cq, m=port.num_records,
+                        cum=cum[:-1])
+
+
 # ---------------------------------------------------------------------------
 # The pipeline against the reference's and the dense sweep
 # ---------------------------------------------------------------------------
@@ -235,6 +318,20 @@ def test_fused_scores_match_reference_and_dense(which, corpus, indexes,
         *theirs, m=port.num_records, backend="jnp"))[:, : len(queries)]
     assert got.shape == want.shape
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    dense = port.batch_scores(queries)
+    np.testing.assert_array_equal(got.view(np.uint32), dense.view(np.uint32))
+
+
+def test_pipeline_scores_equal_dense_past_one_tile(corpus, indexes):
+    """More query-hash lanes than the probe kernel's CTA width (1,024):
+    probe_tasks then block_decode with its prefix, bit-equal to the dense
+    sweep."""
+    port, _ = indexes
+    queries = list(corpus[0][:100])
+    qp, _, _, _ = port._plan_queries(queries)
+    assert qp.values.numel() > 1024
+    staged = pd.stage_query_inputs(port.core.sketches, qp, device=CPU)
+    got = pd.pruned_scores(*staged).numpy()
     dense = port.batch_scores(queries)
     np.testing.assert_array_equal(got.view(np.uint32), dense.view(np.uint32))
 
