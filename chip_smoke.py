@@ -28,7 +28,9 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            CUDA events, and a save/load round trip carrying the postings
   host_pruned  the planner's host route (planner.pruned_batch /
            pruned_topk with the index's B5 verify) on 4 batches at each t
-           and 16 top-10s, equal to the dense and device routes; its stages
+           and 16 top-10s, equal to the dense and device routes; its stages,
+           and per top-10 its B5 launches (one to four growing prefixes of
+           the bound-ordered list) and n, its threshold-0 candidates
   lm       LM serving (``repro_torch.launch.serve``'s functions): qwen3-0.6b
            at full width, weights drawn from --seed on the card in bf16,
            prefill of 4 × 4,096 tokens (causal attention by the B6 kernel)
@@ -44,7 +46,10 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            kernels count their own launches on the card
   parity   each kernel against its plain PyTorch version on the card, at
            the main paths' shapes and on edge cases: exact equality for
-           B1-B5 (B3's pos, hit and block-task prefix also past one CTA
+           B1-B5 (B5 and B1's entries also at the first top-10's whole
+           bound-ordered list, and on B5's own edges: c % 4 != 0, W = 0,
+           W = 9, P = 1, P not a multiple of its CTA's pairs, unaligned
+           rows, and query rows of 1,024 values; B3's pos, hit and block-task prefix also past one CTA
            tile and on key columns past its shared-memory budget, with the
            fence stride each ran with; B4 also on an index whose tail has
            dense-bitmap blocks and on synthetic blocks; the fused front end
@@ -102,7 +107,8 @@ from repro_torch.data.synth import generate_dataset, make_query_workload  # noqa
 from repro_torch.kernels import library, postings_merge, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     body_launches as flash_body_launches, flash_attention)
-from repro_torch.kernels.gather_score import gather_score  # noqa: E402
+from repro_torch.kernels.gather_score import (  # noqa: E402
+    fetch_scores, gather_score, stage_pairs)
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
     fused_build_columns, fused_encode_postings, hash_threshold)
@@ -111,7 +117,7 @@ from repro_torch.kernels.postings_merge import (  # noqa: E402
 from repro_torch.planner import (  # noqa: E402
     PostingsIndex, candidates_for, choose_plan, encode_store,
     f32_threshold, mask_to_hits, postings_equal, pruned_batch, pruned_topk,
-    topk_select)
+    topk_candidates, topk_select)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -781,7 +787,8 @@ def check_pruned(index, batches, run, hits_seen, topk_seen) -> dict:
 def phase_host_pruned(index, batches, topk_queries) -> dict:
     """The planner's host route, driven directly as ``ShardedIndex`` drives
     it off its device route: ``planner.pruned_batch``/``pruned_topk``
-    with ``index._pair_score_fn(qp)``, whose verify is B5."""
+    with ``index._pair_score_fn(qp)``, whose verify is B5 (in growing
+    prefixes of each top-10's bound-ordered list)."""
     post = index._postings()
     m = index.num_records
     run = {"forced": [], "topk": []}
@@ -797,10 +804,12 @@ def phase_host_pruned(index, batches, topk_queries) -> dict:
                                   int(sum(len(c.rec_ids) for c in cands))))
     for q in topk_queries[:GQ]:
         qp, hash_rows, bit_rows, sizes = index._plan_queries([q])
+        before = gather_score.launches
         t0 = time.perf_counter()
         ids, sc = pruned_topk(post, hash_rows[0], bit_rows[0], int(sizes[0]),
                               TOPK, index._pair_score_fn(qp), m)
-        run["topk"].append((ids, sc, (time.perf_counter() - t0) * 1e3))
+        run["topk"].append((ids, sc, (time.perf_counter() - t0) * 1e3,
+                            gather_score.launches - before))
     return run
 
 
@@ -810,7 +819,8 @@ HOST_STAGES = ("sketch_ms", "probe_ms", "candidates_ms", "upload_ms", "b5_ms",
 
 def host_stages(index, b, t):
     """Host-clock ms of each stage of one batch on the host route, with a
-    sync after the device work; with the batch's hits and candidate list."""
+    sync after the device work (the upload is the door's one pinned blob,
+    the fetch its pinned copy); with the batch's hits and candidate list."""
     post = index._postings()
     s = index.core.sketches
     x = s.device_pack(index.device)
@@ -827,15 +837,14 @@ def host_stages(index, b, t):
     cand_q = np.repeat(np.arange(len(b), dtype=np.int32), lens)
     t3 = time.perf_counter()
     q = qp.to(x.device)
-    rec_d = torch.from_numpy(cand_rec).to(x.device)
-    q_d = torch.from_numpy(cand_q).to(x.device)
+    rec_d, q_d = stage_pairs(cand_rec, cand_q, x.device)
     sync()
     t4 = time.perf_counter()
     out = gather_score(x.values, x.thresh, x.buf, q.values, q.thresh,
                        q.buf, q.sizes, rec_d, q_d)
     sync()
     t5 = time.perf_counter()
-    scores = out.cpu().numpy()
+    scores = fetch_scores(out)
     t6 = time.perf_counter()
     thr32 = f32_threshold(t)
     hits, pos = [], 0
@@ -847,10 +856,13 @@ def host_stages(index, b, t):
     return dict(zip(HOST_STAGES, ms.tolist())), hits, cand_rec, cand_q
 
 
-def check_host_pruned(index, batches, run, dev_run, hits_seen, topk_seen):
+def check_host_pruned(index, batches, run, dev_run, hits_seen, topk_seen,
+                      topk_queries):
     """The host route's answers against the dense route's and the device
-    route's; its stages timed on batch 0 at each t. Returns the candidate
-    list (cand_rec, cand_q) of batch 0 at the middle threshold."""
+    route's; its stages timed on batch 0 at each t; B5 launches and n per
+    top-10. Returns the candidate list (cand_rec, cand_q) of batch 0 at the
+    middle threshold, and (query pack, bound-ordered candidate list) of the
+    first top-10 query."""
     forced, stage_rows = [], []
     for i, t, got, ms, cands in run["forced"]:
         require(all(np.array_equal(a, b) for a, b in
@@ -869,16 +881,30 @@ def check_host_pruned(index, batches, run, dev_run, hits_seen, topk_seen):
             stage_rows.append(stages)
             if t == THRESHOLDS[1]:
                 cand_list = (rec, qq)
-    for (ids, sc, _), (dids, dsc), (vids, vsc, _) in zip(
+    for (ids, sc, _, _), (dids, dsc), (vids, vsc, _) in zip(
             run["topk"], topk_seen, dev_run["topk"]):
         require(np.array_equal(ids, dids) and np.array_equal(ids, vids)
                 and np.array_equal(sc.view(np.uint32), dsc.view(np.uint32))
                 and np.array_equal(sc.view(np.uint32), vsc.view(np.uint32)),
                 f"host pruned top-{TOPK} equals dense and device top-{TOPK}")
+    # n per top-10 (its threshold-0 candidates), outside the timed run;
+    # query 0's bound-ordered list is the parity phase's top-k list.
+    post = index._postings()
+    ns = []
+    for j, q in enumerate(topk_queries[:GQ]):
+        qp, hash_rows, bit_rows, sizes = index._plan_queries([q])
+        ranked, _ = topk_candidates(post, hash_rows[0], bit_rows[0],
+                                    int(sizes[0]))
+        ns.append(len(ranked))
+        if j == 0:
+            topk_list = (qp, ranked.astype(np.int32))
     med = {k: float(np.median([r[k] for r in stage_rows]))
            for k in HOST_STAGES}
     total = sum(med.values())
     topk_ms = [r[2] for r in run["topk"]]
+    b5 = [r[3] for r in run["topk"]]
+    require(all(n == 0 or 1 <= b <= 4 for n, b in zip(ns, b5)),
+            f"each host-route top-{TOPK} launches B5 one to four times")
     emit({"phase": "host_pruned", "forced": forced,
           "forced_ms_p50": pctl([r["ms"] for r in forced], 50),
           "forced_equal_dense_and_device": len(forced),
@@ -886,9 +912,12 @@ def check_host_pruned(index, batches, run, dev_run, hits_seen, topk_seen):
                         "candidates_share": med["candidates_ms"] / total,
                         "b5_share": med["b5_ms"] / total},
           "topk": {"k": TOPK, "queries": len(run["topk"]),
-                   "ms_p50": pctl(topk_ms, 50),
+                   "ms_p50": pctl(topk_ms, 50), "ms": topk_ms,
+                   "b5_launches": b5, "b5_launches_p50": pctl(b5, 50),
+                   "b5_launches_total": int(sum(b5)), "n": ns,
+                   "n_p50": pctl(ns, 50),
                    "equals_dense_and_device": True}})
-    return cand_list
+    return cand_list, topk_list
 
 
 def _edge_score_inputs():
@@ -934,6 +963,50 @@ def _edge_pair_cases():
     rec = torch.arange(9, dtype=torch.int32).repeat_interleave(3).to(DEV)
     q = torch.arange(3, dtype=torch.int32).repeat(9).to(DEV)
     return [base, wide, rep], rec, q
+
+
+def _sorted_rows(rng, m, c, hi):
+    """[m, c] u32 rows, each sorted, distinct values below ``hi`` then PAD."""
+    values = np.full((m, c), PAD, np.uint32)
+    for i, n in enumerate(rng.integers(0, c + 1, size=m)):
+        v = np.unique(rng.integers(0, hi, size=2 * int(n) + 1,
+                                   dtype=np.uint64).astype(np.uint32))[:n]
+        values[i, : len(v)] = v
+    return values
+
+
+def _edge_gather_shapes() -> dict:
+    """B5 inputs (columns, cand_rec, cand_q) at the kernel's own edges: c %
+    4 != 0 (scalar row loads), W = 0, W past the lane group, P = 1, P not a
+    multiple of a CTA's 128 pairs, record rows 4 B past a 16-B boundary,
+    and long query rows (16 × 1,024 values)."""
+    rng = np.random.default_rng(21)
+    out = {}
+    for name, (m, c, gq, cq, w, p) in {
+            "c7": (50, 7, 3, 8, 1, 301), "w0": (40, 16, 4, 16, 0, 97),
+            "w9": (90, 56, 5, 56, 9, 1001), "p1": (30, 8, 2, 8, 1, 1),
+            "p301": (70, 16, 3, 16, 1, 301), "unaligned": (50, 8, 2, 8, 1, 211),
+            "cq1024": (300, 16, 16, 1024, 1, 5003)}.items():
+        hi = 2**16 if cq > 64 else 2**7
+        cols = [_sorted_rows(rng, m, c, hi),
+                rng.integers(0, hi + 8, size=m),
+                rng.integers(0, 2**32, size=(m, w), dtype=np.uint64),
+                _sorted_rows(rng, gq, cq, hi),
+                rng.integers(0, hi + 8, size=gq),
+                rng.integers(0, 2**32, size=(gq, w), dtype=np.uint64)]
+        cols = [to_tensor(np.asarray(a).astype(np.uint32)).to(DEV)
+                for a in cols]
+        cols.append(torch.from_numpy(rng.integers(0, 60, size=gq)
+                                     .astype(np.int32)).to(DEV))
+        if name == "unaligned":
+            flat = torch.empty(m * c + 1, dtype=torch.int32, device=DEV)
+            flat[1:] = cols[0].reshape(-1)
+            cols[0] = flat[1:].view(m, c)
+            require(cols[0].data_ptr() % 16 == 4, "rows off a 16-B boundary")
+        rec = torch.from_numpy(rng.integers(0, m, size=p).astype(np.int32))
+        q = torch.from_numpy(rng.integers(0, gq, size=p).astype(np.int32))
+        out[name] = (cols, rec.to(DEV), q.to(DEV))
+    return out
 
 
 def _edge_probe_cases():
@@ -1042,7 +1115,7 @@ def _dense_store_check() -> dict:
 
 
 def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
-                 cand_q) -> dict:
+                 cand_q, topk_list) -> dict:
     """Each kernel against its plain version on the same card tensors,
     exact equality; then their times at the main path's shapes."""
     results = {}
@@ -1130,7 +1203,7 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
         # about a dozen float operations in the tail.
         "ops": 2 * live + m * gq * (2 * w + 12),
     }
-    # -- B5 at a real batch's candidate list plus edge cases --------------------
+    # -- B5 at a real batch's candidate list, the top-k's list, edge cases -----
     rec = torch.from_numpy(cand_rec).to(DEV)
     qq = torch.from_numpy(cand_q).to(DEV)
     pargs = args + (rec, qq)
@@ -1142,11 +1215,42 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     require(torch.equal(got, gbkmv_score(*args)[rec.long(), qq.long()]),
             "gather_score kernel equals the dense kernel's entries")
     err = float((got - want).abs().max())
+    # The first top-10 query's whole bound-ordered list (a one-query pack).
+    tqp, tlist = topk_list
+    tq = tqp.to(DEV)
+    targs = (x.values, x.thresh, x.buf, tq.values, tq.thresh, tq.buf,
+             tq.sizes)
+    trec = torch.from_numpy(tlist).to(DEV)
+    tzero = torch.zeros_like(trec)
+    tgot = gather_score(*targs, trec, tzero)
+    require(torch.equal(tgot, ref.gather_score_ref(*targs, trec, tzero))
+            and torch.equal(tgot, gbkmv_score(*targs)[trec.long(), 0]),
+            "gather_score kernel equals plain version and the dense kernel's "
+            "entries at the top-k's whole list")
+    err = max(err, float((tgot - ref.gather_score_ref(*targs, trec, tzero))
+                         .abs().max()))
     cases, erec, eq = _edge_pair_cases()
     for e in cases:
         require(torch.equal(gather_score(*e, erec, eq),
                             ref.gather_score_ref(*e, erec, eq)),
                 "gather_score kernel equals plain version on edge cases")
+    for name, (ecols, r_e, q_e) in _edge_gather_shapes().items():
+        e_got = gather_score(*ecols, r_e, q_e)
+        require(torch.equal(e_got, ref.gather_score_ref(*ecols, r_e, q_e))
+                and torch.equal(e_got, gbkmv_score(*ecols)[r_e.long(),
+                                                           q_e.long()]),
+                f"gather_score kernel equals plain version and B1 ({name})")
+    lib = library.library()
+
+    def bare(cols, r, q):
+        o = torch.empty(r.numel(), dtype=torch.float32, device=DEV)
+        xv, xt, xb, qv, qt, qb, qs = cols
+        return lambda st: lib.gather_score_launch(
+            xv.data_ptr(), xt.data_ptr(), xb.data_ptr(), m, c, w,
+            qv.data_ptr(), qt.data_ptr(), qb.data_ptr(), qs.data_ptr(),
+            qv.shape[0], qv.shape[1], r.data_ptr(), q.data_ptr(), r.numel(),
+            o.data_ptr(), xv.device.index, st)
+
     p = rec.numel()
     xr = as_u64(x.values[rec.long()])
     tau_p = torch.minimum(as_u64(x.thresh[rec.long()]),
@@ -1162,6 +1266,12 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     results["gather_score"] = {
         "shape": [p, m, c, gq, cq, w], "max_abs_err": err, "parity": "exact",
         "ms": cuda_ms(lambda: gather_score(*pargs), 50),
+        "kernel_graph_ms": graph_ms(bare(args, rec, qq)),
+        "host_us": median_host_us(lambda: gather_score(*pargs)),
+        "topk_list_pairs": trec.numel(),
+        "topk_list_ms": cuda_ms(lambda: gather_score(*targs, trec, tzero),
+                                50),
+        "topk_list_kernel_graph_ms": graph_ms(bare(targs, trec, tzero)),
         "plain_ms": cuda_ms(lambda: ref.gather_score_ref(*pargs), 3),
         "row_bytes": 32 * sectors,
         "bytes": 32 * sectors + 4 * (p * (1 + w + 3) + gq * (cq + 2 + w)),
@@ -1711,7 +1821,8 @@ _ENTRY_KEYS = ("shape", "max_abs_err", "parity", "ms", "plain_ms", "bytes",
 # Keys that a kernel's entry carries beside those, where its result has them.
 _EXTRA_KEYS = ("body", "achieved_tflops", "sass", "library_rel_rms_err",
                "kernel_graph_ms", "body_graph_ms", "body_bound_ms", "host_us",
-               "library_host_us", "front_ms", "front_old_ms")
+               "library_host_us", "front_ms", "front_old_ms",
+               "topk_list_pairs", "topk_list_ms", "topk_list_kernel_graph_ms")
 
 
 def main(argv=None) -> int:
@@ -1758,8 +1869,8 @@ def main(argv=None) -> int:
     reset()
     host_run = phase_host_pruned(index, batches, topk_queries)
     launches["host_pruned"] = read()
-    cand_rec, cand_q = check_host_pruned(index, batches, host_run, run,
-                                         hits_seen, topk_seen)
+    (cand_rec, cand_q), topk_list = check_host_pruned(
+        index, batches, host_run, run, hits_seen, topk_seen, topk_queries)
     lm = lm_setup(args.seed)
     reset()
     lm["out"], lm["bodies"] = launched_bodies(lambda: serve.generate(
@@ -1779,7 +1890,7 @@ def main(argv=None) -> int:
                 f"{name} not launched on the {path} path")
 
     results = phase_parity(index, batch, tail_mask, batches[0], cand_rec,
-                           cand_q)
+                           cand_q, topk_list)
     kernels = []
     for name, r in results.items():
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3

@@ -51,7 +51,7 @@ from repro_torch.core.estimators import containment_matrix, normalize_backend
 from repro_torch.core.hashing import to_numpy
 from repro_torch.core.sketches import PackedSketches
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gather_score import score_pairs
+from repro_torch.kernels.gather_score import PairScorer
 from repro_torch.planner import (BlockStore, PostingsIndex, QueryPlan,
                                  from_flat, threshold_hits_packed, topk_select)
 from repro_torch.planner import device as planner_device
@@ -339,11 +339,9 @@ class GBKMVApiIndex:
         return (qp,) + planner.unpack_query_rows(qp)
 
     def _pair_score_fn(self, qp):
-        """The ragged verify scorer over this index and query pack."""
-        x = self._scoring_pack()
-        qp = qp.to(x.device)       # placed once, not per scored chunk
-        return lambda cand_rec, cand_q: score_pairs(
-            x, qp, cand_rec, cand_q, backend=self.backend)
+        """The ragged verify scorer over this index and query pack (placed
+        once, not per scored chunk)."""
+        return PairScorer(self._scoring_pack(), qp, backend=self.backend)
 
     def _dense_batch_query(self, queries, threshold, qp=None):
         """The comparison runs where the scores are; only the mask is

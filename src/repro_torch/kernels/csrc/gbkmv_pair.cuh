@@ -10,12 +10,10 @@
 //        when k ≥ 2 and K∩ ≥ 1, else K∩ (or 0);
 //   o1 = popcount(buf_X & buf_Q);   score = (o1 + D̂∩) / max(|Q|, 1).
 //
-// Both rows are sorted ascending. n_x and n_q are the live prefixes, K∩ a
-// two-pointer merge of them: the query pointer does not advance on a match,
-// so equal values count exactly as the reference's equality broadcast
-// counts them. (The reference tests each live X value against every query
-// lane; the counts agree because a live X value can only equal a query
-// value ≤ τ, unless τ is PAD itself, which no real threshold is.)
+// gbkmv_pair_tail is the float part, from the integer counts: each kernel
+// finds n_x, n_q, K∩, U and o1 its own way (counts are exact under any
+// method) and ends in this one function. gbkmv_pair_score is B1's way:
+// one thread walks the two rows.
 //
 // The float tail repeats the reference's operation order with explicit
 // round-to-nearest intrinsics (and the library builds with -fmad=false): a
@@ -27,6 +25,31 @@
 
 namespace repro {
 
+__device__ __forceinline__ float gbkmv_pair_tail(int nx, int nq, int kcap,
+                                                uint32_t u, int o1,
+                                                int32_t q_size) {
+  const int k = nx + nq - kcap;
+  const float u_unit =
+      __fdiv_rn(__fadd_rn(__uint2float_rn(u), 1.0f), 4294967296.0f);
+  const float kf = __int2float_rn(k);
+  const float cf = __int2float_rn(kcap);
+  float d;
+  if (k >= 2 && kcap >= 1) {
+    d = __fmul_rn(__fdiv_rn(cf, fmaxf(kf, 1.0f)),
+                  __fdiv_rn(__fsub_rn(kf, 1.0f), fmaxf(u_unit, 1e-30f)));
+  } else {
+    d = kcap >= 1 ? cf : 0.0f;
+  }
+  const float qsf = fmaxf(__int2float_rn(q_size), 1.0f);
+  return __fdiv_rn(__fadd_rn(__int2float_rn(o1), d), qsf);
+}
+
+// Both rows are sorted ascending. n_x and n_q are the live prefixes, K∩ a
+// two-pointer merge of them: the query pointer does not advance on a match,
+// so equal values count exactly as the reference's equality broadcast
+// counts them. (The reference tests each live X value against every query
+// lane; the counts agree because a live X value can only equal a query
+// value ≤ τ, unless τ is PAD itself, which no real threshold is.)
 __device__ __forceinline__ float gbkmv_pair_score(
     const uint32_t* __restrict__ x, int c, uint32_t x_thresh,
     const uint32_t* __restrict__ x_buf, const uint32_t* __restrict__ q,
@@ -47,28 +70,14 @@ __device__ __forceinline__ float gbkmv_pair_score(
     if (j == nq) break;
     if (q[j] == v) ++kcap;
   }
-  const int k = nx + nq - kcap;
   const uint32_t ux = nx > 0 ? x[nx - 1] : 0u;
   const uint32_t uq = nq > 0 ? q[nq - 1] : 0u;
   const uint32_t u = ux > uq ? ux : uq;
 
-  const float u_unit =
-      __fdiv_rn(__fadd_rn(__uint2float_rn(u), 1.0f), 4294967296.0f);
-  const float kf = __int2float_rn(k);
-  const float cf = __int2float_rn(kcap);
-  float d;
-  if (k >= 2 && kcap >= 1) {
-    d = __fmul_rn(__fdiv_rn(cf, fmaxf(kf, 1.0f)),
-                  __fdiv_rn(__fsub_rn(kf, 1.0f), fmaxf(u_unit, 1e-30f)));
-  } else {
-    d = kcap >= 1 ? cf : 0.0f;
-  }
-
   int o1 = 0;
   for (int t = 0; t < w; ++t) o1 += __popc(x_buf[t] & q_buf[t]);
 
-  const float qsf = fmaxf(__int2float_rn(q_size), 1.0f);
-  return __fdiv_rn(__fadd_rn(__int2float_rn(o1), d), qsf);
+  return gbkmv_pair_tail(nx, nq, kcap, u, o1, q_size);
 }
 
 }  // namespace repro

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "gbkmv_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                             _I32, _I32, _P, _P], _I32),
     "gather_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
-                             _I32, _I32, _P, _P, _I64, _P, _P], _I32),
+                             _I32, _I32, _P, _P, _I64, _P, _I32, _P], _I32),
     "postings_probe_launch": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _P,
                                _I32, _P], _I32),
     "postings_probe_fence_shift": ([_I64], _I32),

@@ -19,7 +19,8 @@ from repro_torch.planner.plan import (PLAN_MODES, QueryPlan, choose_plan,
                                       normalize_plan,
                                       probe_block_stats, probe_hits,
                                       probe_hits_per_query, pruned_batch,
-                                      pruned_topk, topk_select,
+                                      pruned_topk, scored_prefix,
+                                      topk_candidates, topk_select,
                                       unpack_query_rows)
 from repro_torch.planner.postings import (BLOCK, BlockStore, PostingsIndex,
                                           build_postings, decode_blocks,
@@ -33,8 +34,8 @@ from repro_torch.planner.prune import (CandidateSet, candidates_for,
 __all__ = [
     "PLAN_MODES", "QueryPlan", "choose_plan",
     "normalize_plan", "probe_block_stats", "probe_hits",
-    "probe_hits_per_query", "pruned_batch", "pruned_topk", "topk_select",
-    "unpack_query_rows",
+    "probe_hits_per_query", "pruned_batch", "pruned_topk", "scored_prefix",
+    "topk_candidates", "topk_select", "unpack_query_rows",
     "BLOCK", "BlockStore", "PostingsIndex", "build_postings",
     "decode_blocks", "decode_store", "encode_store", "from_flat",
     "postings_equal",

@@ -10,14 +10,18 @@ and a filter built on "shares a hash or bit" would drop records the dense
 sweep returns.
 
 ``pruned_batch`` generates candidates per query, scores the ragged union
-in one call (the index passes a closure over
-:func:`repro_torch.kernels.gather_score.score_pairs`) and cuts at the
+in one call (the index passes a
+:class:`repro_torch.kernels.gather_score.PairScorer`) and cuts at the
 float32-exact threshold, so its hits equal the dense sweep's bit for bit.
 
 ``pruned_topk`` scores candidates in bound-descending chunks and stops
 once the running k-th score exceeds every remaining bound. Records that
 are not candidates score exactly 0, so the ranking equals the dense one
-under the (score desc, record id asc) order.
+under the (score desc, record id asc) order. A scorer that runs on a card
+(``score_fn.prefetch``) scores the bound-ordered list in a few growing
+prefixes instead of one call per chunk, and the chunk loop and its stop
+rule replay over those scores: the scored set, and so the answer, is the
+chunked loop's by construction.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ from repro_torch.planner import prune
 from repro_torch.planner.postings import PostingsIndex
 
 PLAN_MODES = ("auto", "dense", "pruned")
+# A prefetching scorer's first call covers PREFIX_GROWTH chunks of the
+# top-k's bound-ordered list and each later call PREFIX_GROWTH times all
+# fetched before, so at the default chunk of 64 a list of up to
+# 64 · 16⁴ = 4,194,304 candidates takes at most four calls.
+PREFIX_GROWTH = 16
 
 
 @dataclasses.dataclass
@@ -213,6 +222,70 @@ def topk_select(rec_ids, scores, k: int,
     return ids.astype(np.int64), s.astype(np.float32)
 
 
+def topk_candidates(post: PostingsIndex, q_hashes: np.ndarray,
+                    q_bits: np.ndarray, q_size: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """(record ids, containment bounds f64) of one query's threshold-0
+    candidates in the order the top-k scores them: bound descending,
+    stable. The bounds are the threshold filter's, inflated by its slack."""
+    q_hashes = np.asarray(q_hashes, np.uint32)
+    cand = prune.candidates_for(post, q_hashes, np.asarray(q_bits, np.int64),
+                                0.0, int(q_size))
+    if not len(cand.rec_ids):
+        return cand.rec_ids, np.zeros(0, np.float64)
+    bound = prune.tail_bound(np.sort(q_hashes))
+    ub = (cand.o1.astype(np.float64)
+          + bound[np.minimum(cand.counts, len(bound) - 1)]) \
+        / max(int(q_size), 1) * prune._BOUND_SLACK
+    order = np.argsort(-ub, kind="stable")
+    return cand.rec_ids[order], ub[order]
+
+
+def scored_prefix(ub: np.ndarray, k: int, chunk: int,
+                  score_range: Callable[[int, int], np.ndarray]
+                  ) -> np.ndarray:
+    """f32 scores of the prefix of a bound-ordered list that the chunk
+    loop scores: chunks of ``chunk`` entries until k scores are in hand and
+    the next chunk's first bound ``ub[pos]`` sits strictly below the
+    running k-th score (bounds descend, so nothing left can enter or tie).
+    ``score_range(lo, hi)`` gives the scores of entries [lo, hi). The k-th
+    score comes from a running selection of the k largest: the value a
+    partition over everything scored gives."""
+    n = len(ub)
+    parts: list[np.ndarray] = []
+    top = np.zeros(0, np.float32)
+    kth = -np.inf
+    pos = 0
+    while pos < n:
+        if pos >= k and ub[pos] < kth:
+            break
+        hi = min(pos + chunk, n)
+        s = np.asarray(score_range(pos, hi), dtype=np.float32)
+        parts.append(s)
+        pos = hi
+        top = np.concatenate([top, s])
+        if len(top) >= k:
+            top = np.partition(top, len(top) - k)[len(top) - k:]
+            kth = float(top[0])
+    return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+
+def _prefetched(score_range, n: int, chunk: int):
+    """``score_range`` served from growing prefixes of an n-entry list:
+    the first call scores PREFIX_GROWTH chunks, each later one
+    PREFIX_GROWTH times all scored before (or up to what is asked)."""
+    got = np.zeros(0, np.float32)
+
+    def served(lo: int, hi: int) -> np.ndarray:
+        nonlocal got
+        if hi > len(got):
+            end = min(n, max(hi, PREFIX_GROWTH * max(len(got), chunk)))
+            got = np.concatenate([got, score_range(len(got), end)])
+        return got[lo:hi]
+
+    return served
+
+
 def pruned_topk(
     post: PostingsIndex,
     q_hashes: np.ndarray,
@@ -227,47 +300,27 @@ def pruned_topk(
 
     Candidates come from the postings at threshold 0, each with the
     containment bound of the threshold filter, and are scored in
-    bound-descending chunks. Once k scores are in hand and every
-    remaining (slack-inflated) bound sits strictly below the running k-th
-    score, nothing left can enter or tie into the top-k and scoring stops.
+    bound-descending chunks (:func:`scored_prefix`). Once k scores are in
+    hand and every remaining (slack-inflated) bound sits strictly below the
+    running k-th score, nothing left can enter or tie into the top-k and
+    scoring stops. When ``score_fn.prefetch`` is true the list is scored
+    in growing prefixes (``PREFIX_GROWTH``) and the chunks read those
+    scores.
     """
     k = min(int(k), int(num_records))
     if k <= 0:
         return np.zeros(0, np.int64), np.zeros(0, np.float32)
-    cand = prune.candidates_for(post, np.asarray(q_hashes, np.uint32),
-                                np.asarray(q_bits, np.int64), 0.0,
-                                int(q_size))
-    n = len(cand.rec_ids)
+    ranked, ub = topk_candidates(post, q_hashes, q_bits, q_size)
+    chunk = int(chunk) if chunk else max(4 * k, 64)
 
-    scored_ids: list[np.ndarray] = []
-    scored_s: list[np.ndarray] = []
-    if n:
-        bound = prune.tail_bound(np.sort(np.asarray(q_hashes, np.uint32)))
-        ub = (cand.o1.astype(np.float64)
-              + bound[np.minimum(cand.counts, len(bound) - 1)]) \
-            / max(int(q_size), 1) * prune._BOUND_SLACK
-        order = np.argsort(-ub, kind="stable")
-        chunk = int(chunk) if chunk else max(4 * k, 64)
-        kth = -np.inf
-        done = 0
-        pos = 0
-        while pos < n:
-            sel = order[pos : pos + chunk]
-            if done >= k and ub[sel[0]] < kth:
-                break               # bounds descend: nothing left can enter
-            s = np.asarray(score_fn(cand.rec_ids[sel].astype(np.int32),
-                                    np.zeros(len(sel), np.int32)),
-                           dtype=np.float32)
-            scored_ids.append(cand.rec_ids[sel])
-            scored_s.append(s)
-            done += len(sel)
-            pos += len(sel)
-            if done >= k:
-                alls = np.concatenate(scored_s)
-                kth = float(np.partition(alls, len(alls) - k)[len(alls) - k])
+    def score_range(lo: int, hi: int) -> np.ndarray:
+        return np.asarray(score_fn(ranked[lo:hi].astype(np.int32),
+                                   np.zeros(hi - lo, np.int32)),
+                          dtype=np.float32)
 
-    ids = np.concatenate(scored_ids) if scored_ids else np.zeros(0, np.int64)
-    s = np.concatenate(scored_s) if scored_s else np.zeros(0, np.float32)
+    if getattr(score_fn, "prefetch", False):
+        score_range = _prefetched(score_range, len(ranked), chunk)
+    s = scored_prefix(ub, k, chunk, score_range)
     # Zero-scored candidates join the non-candidates' tie pool; the shared
     # head applies the (score desc, id asc, zero-fill) contract.
-    return topk_select(ids, s, k, num_records)
+    return topk_select(ranked[: len(s)], s, k, num_records)

@@ -27,6 +27,8 @@ from repro_torch.kernels import postings_merge as pm
 from repro_torch.kernels.flash_attention import body_launches, flash_attention
 from repro_torch.kernels.hash_threshold import hash_threshold
 from repro_torch.planner import device as planner_device
+from repro_torch.planner import pruned_topk as planner_topk
+from repro_torch.planner import topk_candidates as planner_candidates
 from repro_torch.planner import postings as P
 
 pytestmark = pytest.mark.cuda
@@ -201,6 +203,73 @@ def test_gather_kernel_out_of_range_index_writes_nan(cuda_device):
     keep = torch.tensor([0, 4], device=cuda_device)
     assert torch.equal(got[keep], ref.gather_score_ref(*cols, rec[keep],
                                                        q[keep]))
+
+
+@pytest.mark.parametrize("seed,m,c,gq,cq,w,p,unaligned", [
+    (7, 50, 7, 3, 8, 1, 13, False),       # c % 4 != 0: scalar loads
+    (8, 60, 13, 2, 5, 2, 301, False),     # c % 4 != 0, W > 1
+    (9, 40, 16, 4, 16, 0, 97, False),     # W = 0
+    (10, 30, 8, 2, 8, 1, 1, False),       # P = 1
+    (11, 70, 16, 3, 16, 1, 8 * 37 + 5, False),  # P not a multiple of 128
+    (12, 90, 56, 5, 56, 9, 1001, False),  # W past the lane group
+    (13, 50, 8, 2, 8, 1, 211, True),      # c % 4 == 0, rows not 16-B aligned
+])
+def test_gather_kernel_edge_shapes(cuda_device, seed, m, c, gq, cq, w, p,
+                                   unaligned):
+    """Each row-load path and lane-group edge equals the plain version and
+    B1's matrix entries."""
+    cols = _score_inputs(seed, m, c, gq, cq, w, 2**7, cuda_device)
+    if unaligned:            # the same rows, 4 B past a 16-B boundary
+        flat = torch.empty(m * c + 1, dtype=torch.int32, device=cuda_device)
+        flat[1:] = cols[0].reshape(-1)
+        cols[0] = flat[1:].view(m, c)
+        assert cols[0].data_ptr() % 16 == 4 and cols[0].is_contiguous()
+    rng = np.random.default_rng(seed + 50)
+    rec = torch.from_numpy(rng.integers(0, m, size=p).astype(np.int32))
+    q = torch.from_numpy(rng.integers(0, gq, size=p).astype(np.int32))
+    rec, q = rec.to(cuda_device), q.to(cuda_device)
+    got = gs_mod.gather_score(*cols, rec, q)
+    assert torch.equal(got, ref.gather_score_ref(*cols, rec, q))
+    assert torch.equal(got, ops.score_index(*cols)[rec.long(), q.long()])
+
+
+def test_gather_kernel_long_query_rows(cuda_device):
+    """Query rows of 1,024 values (a 64 KB pack; deep binary searches)
+    score what the plain version and B1 give."""
+    cols = _score_inputs(5, 300, 16, 16, 1024, 1, 2**16, cuda_device)
+    rng = np.random.default_rng(55)
+    rec = torch.from_numpy(rng.integers(0, 300, size=5003).astype(np.int32))
+    q = torch.from_numpy(rng.integers(0, 16, size=5003).astype(np.int32))
+    rec, q = rec.to(cuda_device), q.to(cuda_device)
+    got = gs_mod.gather_score(*cols, rec, q)
+    assert torch.equal(got, ref.gather_score_ref(*cols, rec, q))
+    assert torch.equal(got, ops.score_index(*cols)[rec.long(), q.long()])
+
+
+def test_card_host_topk_scores_in_a_few_launches(cuda_device):
+    """The planner's host-route top-10 with the card's scorer equals the
+    dense top-10 and launches B5 at most twice per query here (n ≤ 2,000:
+    a prefix of 1,024 candidates, then the rest if the stop rule asks),
+    and not at all for a query with no candidates."""
+    recs = generate_dataset(m=2000, n_elems=3000, alpha_freq=1.14,
+                            alpha_size=2.5, size_min=5, size_max=80, seed=3)
+    budget = int(0.15 * sum(len(r) for r in recs))
+    card = api.build("gbkmv", recs, budget, postings="eager")
+    post = card._postings()
+    for q in make_query_workload(recs, 16, seed=2):
+        qp, h, b, sz = card._plan_queries([q])
+        scorer = card._pair_score_fn(qp)
+        assert scorer.prefetch
+        before = gs_mod.gather_score.launches
+        ids, sc = planner_topk(post, h[0], b[0], int(sz[0]), 10, scorer,
+                               card.num_records)
+        launches = gs_mod.gather_score.launches - before
+        n = len(planner_candidates(post, h[0], b[0], int(sz[0]))[0])
+        assert (n > 0) <= launches <= (1 if n <= 1024 else 2)
+        want = card.topk(q, 10, plan="dense")
+        np.testing.assert_array_equal(ids, want[0])
+        np.testing.assert_array_equal(sc.view(np.uint32),
+                                      want[1].view(np.uint32))
 
 
 def test_card_pruned_route_answers_like_cpu(cuda_device, tmp_path):

@@ -13,6 +13,7 @@ from repro.data.synth import generate_dataset, make_query_workload
 from repro.planner import prune as ref_prune
 from repro_torch import api, planner
 from repro_torch.core import cost_model
+from repro_torch.kernels import gather_score as gs_mod
 from repro_torch.planner import prune
 
 THRESHOLDS = (0.3, 0.7, 1.0)
@@ -228,6 +229,142 @@ def test_pruned_topk_matches_reference(corpus, ref_index, port_index, chunk):
                                               b.view(np.uint32)
                                               if b.dtype == np.float32 else b)
                 np.testing.assert_array_equal(a, c)
+
+
+class _Scorer:
+    """A score_fn that counts the calls and pairs it is given. With
+    ``prefetch`` it asks ``pruned_topk`` for the card's path (growing
+    prefixes, then the replay), which then runs here through the plain
+    scorer it wraps."""
+
+    def __init__(self, fn, prefetch: bool):
+        self.fn = fn
+        self.prefetch = prefetch
+        self.calls = 0
+        self.pairs = 0
+
+    def __call__(self, cand_rec, cand_q):
+        self.calls += 1
+        self.pairs += len(cand_rec)
+        return self.fn(cand_rec, cand_q)
+
+
+def _zero_scores(cand_rec, _cand_q):
+    return np.zeros(len(cand_rec), np.float32)
+
+
+def _prefix_calls(end: int, n: int, chunk: int) -> int:
+    """Calls a prefetching scorer takes to cover the first ``end`` of n
+    entries: PREFIX_GROWTH chunks, then PREFIX_GROWTH× all fetched."""
+    calls, got = 0, 0
+    while got < end:
+        got = min(n, planner.plan.PREFIX_GROWTH * max(got, chunk))
+        calls += 1
+    return calls
+
+
+@pytest.mark.parametrize("scores", ["plain", "zeros"])
+@pytest.mark.parametrize("chunk", [None, 1, 7, 64])
+def test_prefetched_topk_replays_the_chunk_loop(corpus, ref_index,
+                                                port_index, chunk, scores):
+    """The prefetching top-k (the card's path, run here through the plain
+    scorer) equals ``repro.planner.pruned_topk`` (ids, and scores bit for
+    bit), and its replay consumes exactly the pairs the chunked loop
+    consumes: a query with no candidates, all-zero scores, k from 1 to
+    past n, and stops after the first chunk among them."""
+    _, _, queries = corpus
+    m = port_index.num_records
+    post = port_index._postings()
+    unseen = np.arange(10**6, 10**6 + 20)          # no candidate at all
+    first_chunk_stops = empty = 0
+    for q in queries + [unseen]:
+        one_qp, oh, ob, osz = _plan_inputs(port_index, [q])
+        ref_qp, _, _, _ = _plan_inputs(ref_index, [q])
+        ranked, ub = planner.topk_candidates(post, oh[0], ob[0], int(osz[0]))
+        n = len(ranked)
+        empty += n == 0
+        plain = scores == "plain"
+        for k in (1, 10, n + 3):
+            ref_fn = _Scorer(ref_index._pair_score_fn(ref_qp) if plain
+                             else _zero_scores, False)
+            want = ref_planner.pruned_topk(ref_index._postings(), oh[0],
+                                           ob[0], int(osz[0]), k, ref_fn, m,
+                                           chunk=chunk)
+            chunked = _Scorer(port_index._pair_score_fn(one_qp) if plain
+                              else _zero_scores, False)
+            pre = _Scorer(port_index._pair_score_fn(one_qp) if plain
+                          else _zero_scores, True)
+            for fn in (chunked, pre):
+                got = planner.pruned_topk(post, oh[0], ob[0], int(osz[0]), k,
+                                          fn, m, chunk=chunk)
+                np.testing.assert_array_equal(got[0], want[0])
+                assert got[1].dtype == want[1].dtype == np.float32
+                np.testing.assert_array_equal(got[1].view(np.uint32),
+                                              want[1].view(np.uint32))
+            kk = min(k, m)
+            c = int(chunk) if chunk else max(4 * kk, 64)
+            assert chunked.pairs == ref_fn.pairs
+            whole = np.asarray(chunked.fn(ranked.astype(np.int32),
+                                          np.zeros(n, np.int32)), np.float32)
+            end = len(planner.scored_prefix(ub, kk, c,
+                                            lambda lo, hi: whole[lo:hi]))
+            assert end == ref_fn.pairs
+            assert pre.calls == _prefix_calls(end, n, c)
+            assert pre.pairs >= end
+            first_chunk_stops += c == end < n
+    assert empty, "a query has no candidates"
+    if plain:
+        assert first_chunk_stops, "some top-k stops after its first chunk"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scored_prefix_matches_the_partition_loop(seed):
+    """The running k-th score is the value the reference's partition over
+    everything scored gives, ties and repeated scores included, so the
+    loop stops at the same chunk."""
+    rng = np.random.default_rng(seed)
+    n = 500
+    # Scores and bounds on one grid of eighths, so that a bound often
+    # equals the running k-th score: the loop goes on while it is not
+    # strictly below.
+    s = rng.integers(0, 12, size=n).astype(np.float32) / 8
+    ub = np.sort(rng.integers(0, 16, size=n) / 8)[::-1]
+    for k in (1, 5, 40, 600):
+        for chunk in (1, 7, 64):
+            done, kth, parts = 0, -np.inf, []
+            while done < n:            # repro.planner.pruned_topk's loop
+                if done >= k and ub[done] < kth:
+                    break
+                parts.append(s[done:done + chunk])
+                done += len(parts[-1])
+                if done >= k:
+                    alls = np.concatenate(parts)
+                    kth = float(np.partition(alls, len(alls) - k)
+                                [len(alls) - k])
+            got = planner.scored_prefix(ub, k, chunk,
+                                        lambda lo, hi: s[lo:hi])
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          s[:done].view(np.uint32))
+
+
+def test_pair_scorer_prefetches_only_on_a_card(corpus, port_index):
+    """Off the card the scorer keeps the chunked loop (no prefetch), and
+    it scores as ``score_pairs`` does."""
+    _, _, queries = corpus
+    qp = _plan_inputs(port_index, queries[:2])[0]
+    rec = np.arange(12, dtype=np.int32)
+    q = (rec % 2).astype(np.int32)
+    for backend in ("torch", "numpy"):
+        port_index.backend = backend
+        try:
+            scorer = port_index._pair_score_fn(qp)
+        finally:
+            port_index.backend = "torch"
+        assert scorer.prefetch is False
+        want = gs_mod.score_pairs(port_index._scoring_pack(), qp, rec, q,
+                                  backend=backend)
+        np.testing.assert_array_equal(scorer(rec, q).view(np.uint32),
+                                      want.view(np.uint32))
 
 
 @pytest.mark.parametrize("backend", ["torch", "numpy"])
