@@ -46,7 +46,9 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            kernels count their own launches on the card
   parity   each kernel against its plain PyTorch version on the card, at
            the main paths' shapes and on edge cases: exact equality for
-           B1-B5 (B5 and B1's entries also at the first top-10's whole
+           B1-B5 (B1 also at Gq = 1, 3 and 17 through ops.score_index and
+           with record and query thresholds below the global τ, at
+           NETFLIX's M; B5 and B1's entries also at the first top-10's whole
            bound-ordered list, and on B5's own edges: c % 4 != 0, W = 0,
            W = 9, P = 1, P not a multiple of its CTA's pairs, unaligned
            rows, and query rows of 1,024 values; B3's pos, hit and block-task prefix also past one CTA
@@ -99,7 +101,8 @@ from repro_torch.core import gbkmv  # noqa: E402
 from repro_torch.core.arena import DevicePostings  # noqa: E402
 from repro_torch.core.estimators import (  # noqa: E402
     containment_matrix, gbkmv_containment_np)
-from repro_torch.core.hashing import PAD, as_u64, to_numpy, to_tensor  # noqa: E402
+from repro_torch.core.hashing import (  # noqa: E402
+    PAD, as_bits, as_u64, to_numpy, to_tensor)
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.sketches import RaggedBatch  # noqa: E402
 from repro_torch.data.datasets import SPECS  # noqa: E402
@@ -110,6 +113,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.gather_score import (  # noqa: E402
     fetch_scores, gather_score, stage_pairs)
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
+from repro_torch.kernels.ops import score_index  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
     fused_build_columns, fused_encode_postings, hash_threshold)
 from repro_torch.kernels.postings_merge import (  # noqa: E402
@@ -1175,6 +1179,36 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     m, c = x.values.shape
     gq, cq = qp.values.shape
     w = x.buf.shape[1]
+    # Packs of 1, 3 and 17 queries through score_index (17: batch 0's
+    # and its first query again), at NETFLIX's M.
+    for n in (1, 3, 17):
+        q_n = [t[:n] if n <= gq else torch.cat([t, t[:n - gq]])
+               for t in args[3:]]
+        require(torch.equal(score_index(*args[:3], *q_n),
+                            ref.gbkmv_score_ref(*args[:3], *q_n)),
+                f"gbkmv_score kernel equals plain version at Gq={n}")
+    # Thresholds below the global τ, as on rows that overflowed capacity:
+    # every third record's at its first value, and every other query's at
+    # half of τ (so each side's threshold is the smaller on some pairs).
+    tau_u = int(index.core.tau)
+    xt_low = as_u64(x.thresh)
+    xt_low[::3] = torch.minimum(xt_low[::3], as_u64(x.values[::3, 0]))
+    qt_low = as_u64(qp.thresh)
+    qt_low[1::2] = tau_u // 2
+    low = (x.values, as_bits(xt_low), x.buf, qp.values, as_bits(qt_low),
+           qp.buf, qp.sizes)
+    require(torch.equal(gbkmv_score(*low), ref.gbkmv_score_ref(*low)),
+            "gbkmv_score kernel equals plain version with thresholds below "
+            "the global tau")
+    lib = library.library()
+    out_b1 = torch.empty((m, gq), dtype=torch.float32, device=DEV)
+
+    def bare_b1(st):
+        return lib.gbkmv_score_launch(
+            x.values.data_ptr(), x.thresh.data_ptr(), x.buf.data_ptr(), m, c,
+            w, qp.values.data_ptr(), qp.thresh.data_ptr(), qp.buf.data_ptr(),
+            qp.sizes.data_ptr(), gq, cq, out_b1.data_ptr(),
+            x.values.device.index, st)
     xu = as_u64(x.values)
     tau_pair = torch.minimum(as_u64(x.thresh)[:, None],
                              as_u64(qp.thresh)[None, :])       # [m, gq]
@@ -1193,7 +1227,10 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     results["gbkmv_score"] = {
         "shape": [m, c, gq, cq, w], "max_abs_err": err, "parity": "exact",
         "ms": cuda_ms(lambda: gbkmv_score(*args), 50),
+        "kernel_graph_ms": graph_ms(bare_b1),
+        "host_us": median_host_us(lambda: gbkmv_score(*args)),
         "plain_ms": cuda_ms(lambda: ref.gbkmv_score_ref(*args), 3),
+        "records_below_tau_checked": int((xt_low < tau_u).sum()),
         "live_x_per_pair": live_x / (m * gq),
         "row_values_read_per_record": float(reads.float().mean()),
         "row_bytes": 32 * sectors,
@@ -1240,7 +1277,6 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
                 and torch.equal(e_got, gbkmv_score(*ecols)[r_e.long(),
                                                            q_e.long()]),
                 f"gather_score kernel equals plain version and B1 ({name})")
-    lib = library.library()
 
     def bare(cols, r, q):
         o = torch.empty(r.numel(), dtype=torch.float32, device=DEV)

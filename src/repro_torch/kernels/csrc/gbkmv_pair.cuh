@@ -1,7 +1,7 @@
-// The GB-KMV containment estimate of one (record X, query Q) pair, shared by
-// the dense sweep (gbkmv_score.cu, B1) and the candidate verify
-// (gather_score.cu, B5) so that the two kernels cannot drift apart, as the
-// reference's two Pallas kernels share one math.
+// The float tail of the GB-KMV containment estimate of one (record X,
+// query Q) pair, shared by the dense sweep (gbkmv_score.cu, B1) and the
+// candidate verify (gather_score.cu, B5) so that the two kernels cannot
+// drift apart, as the reference's two Pallas kernels share one math.
 //
 //   τ = min(thr_X, thr_Q); n_x, n_q = #values ≤ τ;
 //   K∩ = #live X values present in Q; k = n_x + n_q − K∩;
@@ -10,10 +10,9 @@
 //        when k ≥ 2 and K∩ ≥ 1, else K∩ (or 0);
 //   o1 = popcount(buf_X & buf_Q);   score = (o1 + D̂∩) / max(|Q|, 1).
 //
-// gbkmv_pair_tail is the float part, from the integer counts: each kernel
-// finds n_x, n_q, K∩, U and o1 its own way (counts are exact under any
-// method) and ends in this one function. gbkmv_pair_score is B1's way:
-// one thread walks the two rows.
+// gbkmv_pair_tail takes the integer counts: each kernel finds n_x, n_q, K∩,
+// U and o1 its own way (counts are exact under any method) and ends in this
+// one function. With K∩ = 0 it reads o1 and |Q| only.
 //
 // The float tail repeats the reference's operation order with explicit
 // round-to-nearest intrinsics (and the library builds with -fmad=false): a
@@ -42,42 +41,6 @@ __device__ __forceinline__ float gbkmv_pair_tail(int nx, int nq, int kcap,
   }
   const float qsf = fmaxf(__int2float_rn(q_size), 1.0f);
   return __fdiv_rn(__fadd_rn(__int2float_rn(o1), d), qsf);
-}
-
-// Both rows are sorted ascending. n_x and n_q are the live prefixes, K∩ a
-// two-pointer merge of them: the query pointer does not advance on a match,
-// so equal values count exactly as the reference's equality broadcast
-// counts them. (The reference tests each live X value against every query
-// lane; the counts agree because a live X value can only equal a query
-// value ≤ τ, unless τ is PAD itself, which no real threshold is.)
-__device__ __forceinline__ float gbkmv_pair_score(
-    const uint32_t* __restrict__ x, int c, uint32_t x_thresh,
-    const uint32_t* __restrict__ x_buf, const uint32_t* __restrict__ q,
-    int cq, uint32_t q_thresh, const uint32_t* __restrict__ q_buf, int w,
-    int32_t q_size) {
-  const uint32_t tau = min(x_thresh, q_thresh);
-
-  int nx = 0;
-  while (nx < c && x[nx] <= tau) ++nx;
-  int nq = 0;
-  while (nq < cq && q[nq] <= tau) ++nq;
-
-  int kcap = 0;
-  int j = 0;
-  for (int i = 0; i < nx; ++i) {
-    const uint32_t v = x[i];
-    while (j < nq && q[j] < v) ++j;
-    if (j == nq) break;
-    if (q[j] == v) ++kcap;
-  }
-  const uint32_t ux = nx > 0 ? x[nx - 1] : 0u;
-  const uint32_t uq = nq > 0 ? q[nq - 1] : 0u;
-  const uint32_t u = ux > uq ? ux : uq;
-
-  int o1 = 0;
-  for (int t = 0; t < w; ++t) o1 += __popc(x_buf[t] & q_buf[t]);
-
-  return gbkmv_pair_tail(nx, nq, kcap, u, o1, q_size);
 }
 
 }  // namespace repro

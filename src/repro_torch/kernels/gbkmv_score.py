@@ -10,16 +10,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.library import check, library
+from repro_torch.kernels.library import check, current_stream_ptr, library
 
-# Shared memory one block may use on Hopper (dynamic, opted in above 48 KB).
-MAX_SMEM_BYTES = 232448
+# Shared memory a launch may stage for the query pack: the 232,448 B one
+# block may use on Hopper less the kernel's 8,192-B filter
+# (``kMaxPackSmem`` in csrc/gbkmv_score.cu, whose C entry refuses more).
+MAX_SMEM_BYTES = 232448 - 8192
 
 
 def query_pack_bytes(gq: int, cq: int, w: int) -> int:
     """Shared memory a launch stages for a [gq, cq] query pack with w
-    buffer words (values, thresholds, buffers, sizes)."""
-    return (gq * cq + gq + gq * w + gq) * 4
+    buffer words: values, buffers, and per query its threshold, size, own
+    live count and largest live value."""
+    return (gq * cq + gq * w + 4 * gq) * 4
 
 
 def _check_inputs(x_values, x_thresh, x_buf, q_values, q_thresh, q_buf,
@@ -71,17 +74,15 @@ def gbkmv_score(x_values, x_thresh, x_buf,
     smem = query_pack_bytes(gq, cq, w)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"query pack needs {smem} B of shared memory, "
-                         f"over the {MAX_SMEM_BYTES} B a block may use")
-    out = torch.empty((m, gq), dtype=torch.float32, device=x_values.device)
+                         f"over the {MAX_SMEM_BYTES} B a launch may stage")
+    dev = x_values.device
+    out = torch.empty((m, gq), dtype=torch.float32, device=dev)
     if m and gq:
-        lib = library()
-        with torch.cuda.device(x_values.device):
-            err = lib.gbkmv_score_launch(
-                x_values.data_ptr(), x_thresh.data_ptr(), x_buf.data_ptr(),
-                m, c, w, q_values.data_ptr(), q_thresh.data_ptr(),
-                q_buf.data_ptr(), q_sizes.data_ptr(), gq, cq,
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        check(err, "gbkmv_score_launch")
+        check(library().gbkmv_score_launch(
+            x_values.data_ptr(), x_thresh.data_ptr(), x_buf.data_ptr(), m, c,
+            w, q_values.data_ptr(), q_thresh.data_ptr(), q_buf.data_ptr(),
+            q_sizes.data_ptr(), gq, cq, out.data_ptr(), dev.index,
+            current_stream_ptr(dev.index)), "gbkmv_score_launch")
         gbkmv_score.launches += 1
     return out
 

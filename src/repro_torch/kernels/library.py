@@ -42,7 +42,7 @@ _F32 = ctypes.c_float
 _SIGNATURES = {
     "hash_threshold_launch": ([_P, _P, _P, _I64, _U32, _U32, _P], _I32),
     "gbkmv_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
-                            _I32, _I32, _P, _P], _I32),
+                            _I32, _I32, _P, _I32, _P], _I32),
     "gather_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                              _I32, _I32, _P, _P, _I64, _P, _I32, _P], _I32),
     "postings_probe_launch": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _P,

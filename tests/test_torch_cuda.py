@@ -41,22 +41,40 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _rows(rng, m, c, hi):
+def _rows(rng, m, c, hi, full=False):
     values = np.full((m, c), PAD, np.uint32)
-    for i, n in enumerate(rng.integers(0, c + 1, size=m)):
+    for i, n in enumerate(rng.integers(c if full else 0, c + 1, size=m)):
         v = np.unique(rng.integers(0, hi, size=2 * int(n) + 1,
                                    dtype=np.uint64).astype(np.uint32))[:n]
         values[i, : len(v)] = v
     return values
 
 
-def _score_inputs(seed, m, c, gq, cq, w, hi, device):
+def _thresholds(rng, rows, hi, mode):
+    """Per-row thresholds: "random" draws, "row_values" one of the row's own
+    values, "below" a global τ = hi / 2 with every third row's at or under
+    one of its values below τ (a row that overflowed its capacity)."""
+    if mode == "random":
+        return np.minimum(rng.integers(0, hi + 8, size=len(rows)), PAD - 1)
+    lengths = (rows != PAD).sum(1)
+    pick = np.asarray([r[rng.integers(n)] if n else rng.integers(0, hi)
+                       for r, n in zip(rows, lengths)], np.int64)
+    if mode == "row_values":
+        return pick
+    t = np.full(len(rows), hi // 2, np.int64)
+    cut = np.arange(len(rows)) % 3 == 0
+    t[cut] = np.minimum(hi // 2, pick[cut])
+    return t
+
+
+def _score_inputs(seed, m, c, gq, cq, w, hi, device, full=False,
+                  thr="random"):
     rng = np.random.default_rng(seed)
-    cols = [_rows(rng, m, c, hi),
-            np.minimum(rng.integers(0, hi + 8, size=m), PAD - 1),
-            rng.integers(0, 2**32, size=(m, w), dtype=np.uint64),
-            _rows(rng, gq, cq, hi),
-            np.minimum(rng.integers(0, hi + 8, size=gq), PAD - 1),
+    xv = _rows(rng, m, c, hi, full)
+    xt = _thresholds(rng, xv, hi, thr)
+    xb = rng.integers(0, 2**32, size=(m, w), dtype=np.uint64)
+    qv = _rows(rng, gq, cq, hi, full)
+    cols = [xv, xt, xb, qv, _thresholds(rng, qv, hi, thr),
             rng.integers(0, 2**32, size=(gq, w), dtype=np.uint64)]
     out = [to_tensor(np.asarray(a).astype(np.uint32)) for a in cols]
     out.append(torch.from_numpy(rng.integers(0, 60, size=gq).astype(np.int32)))
@@ -86,15 +104,23 @@ def test_hash_threshold_kernel_matches_plain(cuda_device):
     assert hash_threshold(empty, 0, 5)[0].numel() == 0
 
 
-@pytest.mark.parametrize("seed,m,c,gq,cq,w,hi", [
-    (0, 8, 16, 1, 16, 1, 64),
-    (1, 13, 16, 3, 24, 2, 64),       # odd M, query wider than records
-    (2, 40, 32, 4, 8, 4, 2**32),
-    (3, 64, 8, 2, 8, 0, 64),         # no buffer words
-    (4, 5001, 56, 16, 56, 1, 2**12),
+@pytest.mark.parametrize("seed,m,c,gq,cq,w,hi,full,thr", [
+    (0, 8, 16, 1, 16, 1, 64, False, "random"),
+    (1, 13, 16, 3, 24, 2, 64, False, "random"),  # odd M, query wider
+    (2, 40, 32, 4, 8, 4, 2**32, False, "random"),
+    (3, 64, 8, 2, 8, 0, 64, False, "random"),    # no buffer words
+    (4, 5001, 56, 16, 56, 1, 2**12, False, "random"),
+    (5, 300, 7, 5, 9, 1, 64, False, "random"),   # C, Cq not multiples of 4
+    (6, 517, 8, 17, 13, 3, 2**10, False, "random"),  # Gq 17, M % 256 != 0
+    (7, 1000, 56, 33, 56, 1, 2**9, False, "random"),  # Gq over 32
+    (8, 700, 20, 16, 16, 1, 2**16, True, "random"),   # rows full
+    (9, 600, 12, 6, 12, 1, 2**8, False, "row_values"),  # τ = a row value
+    (10, 900, 56, 16, 56, 1, 2**12, True, "below"),   # thresholds below τ
+    (11, 257, 24, 1, 20, 0, 2**8, False, "below"),    # Gq 1, W 0, M 257
 ])
-def test_score_kernel_matches_plain(cuda_device, seed, m, c, gq, cq, w, hi):
-    cols = _score_inputs(seed, m, c, gq, cq, w, hi, cuda_device)
+def test_score_kernel_matches_plain(cuda_device, seed, m, c, gq, cq, w, hi,
+                                    full, thr):
+    cols = _score_inputs(seed, m, c, gq, cq, w, hi, cuda_device, full, thr)
     before = score_mod.gbkmv_score.launches
     got = ops.score_index(*cols)
     assert score_mod.gbkmv_score.launches == before + 1

@@ -140,6 +140,32 @@ def test_query_batch_split_across_launches(monkeypatch):
     _bits_equal(_port(*args), whole)
 
 
+@pytest.mark.parametrize("gq,cq,w", [(60, 1024, 1), (20, 3000, 2),
+                                     (5, 12000, 0)])
+def test_score_index_splits_to_the_kernel_pack(monkeypatch, gq, cq, w):
+    """``ops.score_index`` cuts a batch whose pack is over MAX_SMEM_BYTES
+    into consecutive parts, each as large as fits the kernel's pack (values,
+    buffers and four words a query); the parts' scores equal the
+    reference's."""
+    args = _case(10 + gq, 6, 8, gq, cq, w, hi=2**16)
+    assert score_mod.query_pack_bytes(gq, cq, w) > score_mod.MAX_SMEM_BYTES
+    launch = score_mod.gbkmv_score
+    parts = []
+
+    def part(*cols):
+        n, wq = cols[3].shape[0], cols[5].shape[1]
+        assert score_mod.query_pack_bytes(n, cq, wq) <= score_mod.MAX_SMEM_BYTES
+        parts.append(n)
+        return launch(*cols)
+
+    monkeypatch.setattr(score_mod, "gbkmv_score", part)
+    got = _port(*args)
+    step = score_mod.MAX_SMEM_BYTES // ((cq + w + 4) * 4)
+    assert parts == [min(step, gq - g) for g in range(0, gq, step)]
+    assert len(parts) == 2
+    _bits_equal(got, _ref_numpy(*args))
+
+
 def test_containment_matrix_backends_agree_with_reference():
     xv, xt, xb, qv, qt, qb, qs = _case(7, 30, 16, 3, 16, 2)
     x = PackedSketches.from_numpy(xv, np.zeros(30, np.int32), xt, xb,
