@@ -12,17 +12,27 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.library import check, current_stream_ptr, library
 
-# Shared memory a launch may stage for the query pack: the 232,448 B one
-# block may use on Hopper less the kernel's 8,192-B filter
-# (``kMaxPackSmem`` in csrc/gbkmv_score.cu, whose C entry refuses more).
-MAX_SMEM_BYTES = 232448 - 8192
-
-
 def query_pack_bytes(gq: int, cq: int, w: int) -> int:
     """Shared memory a launch stages for a [gq, cq] query pack with w
-    buffer words: values, buffers, and per query its threshold, size, own
-    live count and largest live value."""
-    return (gq * cq + gq * w + 4 * gq) * 4
+    buffer words, as the kernel lays it out. Asks the kernel library, so
+    needs the card's toolchain."""
+    return library().gbkmv_score_pack_bytes(gq, cq, w)
+
+
+def max_pack_bytes() -> int:
+    """The most shared memory a launch may stage for its query pack (what
+    one block may use on Hopper less the kernel's filter). Asks the kernel
+    library."""
+    return library().gbkmv_score_max_pack_bytes()
+
+
+def queries_per_launch(device: torch.device, gq: int, cq: int, w: int) -> int:
+    """How many of a batch's gq queries one call on ``device`` takes: all
+    of them on the CPU, whose plain version stages nothing; on a card as
+    many as the kernel's pack holds, at least one."""
+    if device.type != "cuda":
+        return gq
+    return max(1, min(gq, max_pack_bytes() // query_pack_bytes(1, cq, w)))
 
 
 def _check_inputs(x_values, x_thresh, x_buf, q_values, q_thresh, q_buf,
@@ -57,10 +67,9 @@ def gbkmv_score(x_values, x_thresh, x_buf,
 
     All inputs int32 (u32 columns as bit patterns), contiguous, on one
     device; record rows and query rows sorted ascending and PAD-filled.
-    The query pack must fit the block's shared memory
-    (:func:`query_pack_bytes` ≤ ``MAX_SMEM_BYTES``); ``ops.score_index``
-    splits larger batches.
-    """
+    On a card the query pack must fit the block's shared memory
+    (:func:`query_pack_bytes` ≤ :func:`max_pack_bytes`; the C entry
+    refuses more); ``ops.score_index`` splits larger batches."""
     _check_inputs(x_values, x_thresh, x_buf, q_values, q_thresh, q_buf,
                   q_sizes)
     if x_values.device.type == "cpu":
@@ -71,10 +80,6 @@ def gbkmv_score(x_values, x_thresh, x_buf,
     m, c = x_values.shape
     gq, cq = q_values.shape
     w = x_buf.shape[1]
-    smem = query_pack_bytes(gq, cq, w)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"query pack needs {smem} B of shared memory, "
-                         f"over the {MAX_SMEM_BYTES} B a launch may stage")
     dev = x_values.device
     out = torch.empty((m, gq), dtype=torch.float32, device=dev)
     if m and gq:

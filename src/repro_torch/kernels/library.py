@@ -43,6 +43,8 @@ _SIGNATURES = {
     "hash_threshold_launch": ([_P, _P, _P, _I64, _U32, _U32, _P], _I32),
     "gbkmv_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                             _I32, _I32, _P, _I32, _P], _I32),
+    "gbkmv_score_pack_bytes": ([_I32, _I32, _I32], _I64),
+    "gbkmv_score_max_pack_bytes": ([], _I64),
     "gather_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                              _I32, _I32, _P, _P, _I64, _P, _I32, _P], _I32),
     "postings_probe_launch": ([_P, _I64, _P, _I64, _P, _P, _P, _P, _P,

@@ -29,8 +29,7 @@ def score_index(x_values, x_thresh, x_buf,
     q = (q_values.contiguous(), q_thresh.contiguous(), _widen(q_buf, w),
          q_sizes.contiguous())
     gq, cq = q_values.shape
-    per_query = _score_mod.query_pack_bytes(1, cq, w)
-    step = max(1, min(gq, _score_mod.MAX_SMEM_BYTES // per_query))
+    step = _score_mod.queries_per_launch(x_values.device, gq, cq, w)
     if step >= gq:
         return _score_mod.gbkmv_score(*x, *q)
     parts = [_score_mod.gbkmv_score(*x, *(t[g:g + step] for t in q))

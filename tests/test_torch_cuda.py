@@ -134,6 +134,30 @@ def test_score_kernel_query_pack_over_48kb(cuda_device):
     assert torch.equal(ops.score_index(*cols), ref.gbkmv_score_ref(*cols))
 
 
+def test_score_pack_budget_comes_from_the_kernel(cuda_device):
+    """The wrapper's pack size and limit are the kernel library's: values,
+    buffers and four words a query, within the block's 232,448 B less the
+    8,192-B filter. ``ops.score_index`` splits at that limit: a part of
+    ``queries_per_launch`` queries launches, one query more is refused."""
+    for gq, cq, w in ((1, 1, 0), (16, 56, 1), (60, 1024, 9)):
+        assert score_mod.query_pack_bytes(gq, cq, w) == (
+            gq * cq + gq * w + 4 * gq) * 4
+    assert score_mod.max_pack_bytes() == 232448 - 8192
+    gq, cq, w = 60, 1024, 1
+    cols = _score_inputs(12, 300, 16, gq, cq, w, 2**16, cuda_device)
+    step = score_mod.queries_per_launch(cols[0].device, gq, cq, w)
+    assert step == (232448 - 8192) // ((cq + w + 4) * 4) < gq
+    before = score_mod.gbkmv_score.launches
+    assert torch.equal(ops.score_index(*cols), ref.gbkmv_score_ref(*cols))
+    assert score_mod.gbkmv_score.launches == before + 2
+    fits = cols[:3] + [t[:step].contiguous() for t in cols[3:]]
+    assert torch.equal(score_mod.gbkmv_score(*fits),
+                       ref.gbkmv_score_ref(*fits))
+    over = cols[:3] + [t[:step + 1].contiguous() for t in cols[3:]]
+    with pytest.raises(RuntimeError):
+        score_mod.gbkmv_score(*over)
+
+
 @pytest.mark.parametrize("tau_mode", ["exact", "histogram"])
 def test_device_build_matches_host_build(cuda_device, tau_mode):
     recs = generate_dataset(m=3000, n_elems=4000, alpha_freq=1.14,

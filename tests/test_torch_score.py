@@ -130,37 +130,66 @@ def test_empty_buffer_and_mismatched_widths():
                 _ref_numpy(xv, xt, np.zeros((9, 2), np.uint32), qv, qt, qb2, qs))
 
 
+# The kernel's pack, as csrc/gbkmv_score.cu lays it out and budgets it
+# (the library's answers on a card are checked in test_torch_cuda.py):
+# values, buffers and four words a query, within the 232,448 B one block
+# may use on Hopper less the 8,192-B filter.
+def _kernel_pack_bytes(gq, cq, w):
+    return (gq * cq + gq * w + 4 * gq) * 4
+
+
+_KERNEL_MAX_PACK_BYTES = 232448 - 8192
+
+
+def _split_like_a_card(monkeypatch, max_bytes):
+    """Have ``ops.score_index`` split CPU batches as it splits them on a
+    card whose kernel library answers with the layout above."""
+    monkeypatch.setattr(score_mod, "query_pack_bytes", _kernel_pack_bytes)
+    monkeypatch.setattr(score_mod, "max_pack_bytes", lambda: max_bytes)
+    on_card = score_mod.queries_per_launch
+    monkeypatch.setattr(
+        score_mod, "queries_per_launch",
+        lambda device, gq, cq, w: on_card(torch.device("cuda"), gq, cq, w))
+
+
 def test_query_batch_split_across_launches(monkeypatch):
     """A pack over the shared-memory limit is scored in parts; the parts
     concatenate to the one-call answer."""
     args = _case(6, 11, 8, 4, 8, 1)
     whole = _port(*args)
-    monkeypatch.setattr(score_mod, "MAX_SMEM_BYTES",
-                        score_mod.query_pack_bytes(1, 8, 1) * 3)
+    assert score_mod.queries_per_launch(torch.device("cpu"), 4, 8, 1) == 4
+    _split_like_a_card(monkeypatch, _kernel_pack_bytes(1, 8, 1) * 3)
+    launch = score_mod.gbkmv_score
+    parts = []
+    monkeypatch.setattr(score_mod, "gbkmv_score",
+                        lambda *cols: parts.append(len(cols[3])) or
+                        launch(*cols))
     _bits_equal(_port(*args), whole)
+    assert parts == [3, 1]
 
 
 @pytest.mark.parametrize("gq,cq,w", [(60, 1024, 1), (20, 3000, 2),
                                      (5, 12000, 0)])
 def test_score_index_splits_to_the_kernel_pack(monkeypatch, gq, cq, w):
-    """``ops.score_index`` cuts a batch whose pack is over MAX_SMEM_BYTES
-    into consecutive parts, each as large as fits the kernel's pack (values,
-    buffers and four words a query); the parts' scores equal the
+    """``ops.score_index`` cuts a batch whose pack is over the kernel's
+    budget into consecutive parts, each as large as fits the kernel's pack
+    (values, buffers and four words a query); the parts' scores equal the
     reference's."""
     args = _case(10 + gq, 6, 8, gq, cq, w, hi=2**16)
-    assert score_mod.query_pack_bytes(gq, cq, w) > score_mod.MAX_SMEM_BYTES
+    assert _kernel_pack_bytes(gq, cq, w) > _KERNEL_MAX_PACK_BYTES
+    _split_like_a_card(monkeypatch, _KERNEL_MAX_PACK_BYTES)
     launch = score_mod.gbkmv_score
     parts = []
 
     def part(*cols):
         n, wq = cols[3].shape[0], cols[5].shape[1]
-        assert score_mod.query_pack_bytes(n, cq, wq) <= score_mod.MAX_SMEM_BYTES
+        assert _kernel_pack_bytes(n, cq, wq) <= _KERNEL_MAX_PACK_BYTES
         parts.append(n)
         return launch(*cols)
 
     monkeypatch.setattr(score_mod, "gbkmv_score", part)
     got = _port(*args)
-    step = score_mod.MAX_SMEM_BYTES // ((cq + w + 4) * 4)
+    step = _KERNEL_MAX_PACK_BYTES // ((cq + w + 4) * 4)
     assert parts == [min(step, gq - g) for g in range(0, gq, step)]
     assert len(parts) == 2
     _bits_equal(got, _ref_numpy(*args))
