@@ -54,7 +54,9 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            rows, and query rows of 1,024 values; B3's pos, hit and block-task prefix also past one CTA
            tile and on key columns past its shared-memory budget, with the
            fence stride each ran with; B4 also on an index whose tail has
-           dense-bitmap blocks and on synthetic blocks; the fused front end
+           dense-bitmap blocks and on synthetic blocks, with how its C entry
+           zeroes the counts, its registers and its SASS instruction
+           count, timed bare and as the decode alone; the fused front end
            against the probe + torch prefix, timed in turns with it and
            with torch.searchsorted), 2e-2 (bf16) and 2e-5 (f32) for B6 on
            each case, with the body that ran (tensor cores, "wgmma", or
@@ -81,6 +83,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -1085,10 +1088,11 @@ def _task_blocks(pos, hit, row_blocks):
     return rs[lane] + t - (cum[lane] - nblk[lane])
 
 
-def _dense_store_check() -> dict:
-    """B4 against its plain version on an index whose tail has dense-bitmap
-    blocks: the reference's recipe (tests/test_device_pipeline.py:40,
-    ``dense_corpus``), r = 2, budget 20,000, eager postings."""
+def dense_block_index():
+    """(index, queries): an index whose tail has dense-bitmap blocks, by the
+    reference's recipe (tests/test_device_pipeline.py:40, ``dense_corpus``),
+    r = 2, budget 20,000, eager postings, and a batch of GQ queries (the
+    first half of each of its first records)."""
     rng = np.random.default_rng(7)
     recs = []
     for _ in range(600):
@@ -1096,9 +1100,15 @@ def _dense_store_check() -> dict:
         common = [c for c in range(10) if rng.random() < 0.85]
         recs.append(np.unique(np.concatenate([common, base]).astype(np.int64)))
     index = api.build("gbkmv", recs, 20_000, r=2, postings="eager")
+    return index, [r[: max(2, len(r) // 2)] for r in recs[:GQ]]
+
+
+def _dense_store_check() -> dict:
+    """B4 against its plain version on the dense-block store
+    (:func:`dense_block_index`)."""
+    index, queries = dense_block_index()
     dpost = index.core.sketches.device_postings(DEV)
     require(dpost.has_dense, "the dense-block store has dense blocks")
-    queries = [r[: max(2, len(r) // 2)] for r in recs[:GQ]]
     qp = gbkmv.sketch_query_batch(index.core, queries).to(DEV)
     gq, cq = qp.values.shape
     pos, hit = postings_probe(dpost.keys, qp.values.reshape(-1))
@@ -1431,6 +1441,8 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     words = int((dpost.off[blk + 1] - dpost.off[blk]).sum())
     entries = int(((dpost.meta[blk] & 0x7F) + 1).sum())
     kc_o = torch.empty_like(kc)
+    b4_sass = {k: v for k, v in sass_instructions(library.build()).items()
+               if "block_decode" in k or "zero_counts" in k}
 
     def bare_decode(zero_counts: int):
         return lambda st: lib.block_decode_launch(
@@ -1444,19 +1456,25 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     # words and headers (first, meta, off), pos and the prefix sum per
     # lane, the row start of each hit lane and one 4-B atomic update per
     # decoded entry. The function also writes the [m, gq] counts once (the
-    # C entry's memset), which ``bytes`` adds.
+    # C entry's zeroing), which ``bytes`` adds.
     body_bytes = (4 * words + 12 * int(blk.numel()) + 8 * n + 4 * hit_lanes
                   + 4 * entries)
     results["block_decode"] = {
         "shape": [n, int(blk.numel()), m, gq], "max_abs_err": err,
         "parity": "exact",
         "ms": cuda_ms(lambda: block_decode(*kargs, cum=cum, **kw), 50),
-        # The bare launch as the wrapper makes it: the counts' memset and
-        # the decode; and the decode body alone (no memset).
+        # The bare launch as the wrapper makes it: the counts' zeroing and
+        # the decode; and the decode body alone (no zeroing).
         "kernel_graph_ms": graph_ms(bare_decode(1)),
         "body_graph_ms": graph_ms(bare_decode(0)),
         "body_bound_ms": body_bytes / HBM_BYTES_PER_S * 1e3,
-        "body_bytes": body_bytes, "memset_bytes": 4 * m * gq,
+        "body_bytes": body_bytes, "zeroing_bytes": 4 * m * gq,
+        # How the C entry zeroes the counts, as the library shows it: a
+        # zeroing kernel of its own (launched before the decode, which
+        # runs against it by programmatic dependent launch) or a memset.
+        "zeroing": "pdl" if any("zero_counts" in k for k in b4_sass)
+                   else "memset",
+        "sass": b4_sass, "registers": ptxas_usage("block_decode.cu"),
         "host_us": median_host_us(
             lambda: block_decode(*kargs, cum=cum, **kw)),
         "plain_ms": cuda_ms(lambda: ref.kcount_ref(*kargs, **kw), 5),
@@ -1833,16 +1851,59 @@ def parity_flash() -> dict:
     }
 
 
+_SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+\S")
+
+
+def _dump_sass(lib: Path) -> str:
+    cuobjdump = Path(library._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+def sass_instructions(lib: Path) -> dict:
+    """SASS instructions of each kernel in a built library, by the kernel's
+    mangled name (cuobjdump --dump-sass)."""
+    counts, name = {}, None
+    for line in _dump_sass(lib).splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[-1].strip()
+            counts[name] = 0
+        elif name is not None and _SASS_INSTRUCTION.search(line):
+            counts[name] += 1
+    return counts
+
+
+def ptxas_usage(source: str) -> dict:
+    """Registers and spill bytes of each kernel of one source, by mangled
+    name, from ptxas's report in the library's ``build.log``."""
+    log = (library.build().parent / "build.log").read_text()
+    usage, name, inside = {}, None, False
+    for line in log.splitlines():
+        if line.startswith("== "):
+            inside = line[3:].strip() == source
+        elif not inside:
+            continue
+        elif m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+            usage[name] = {}
+        elif name is None:
+            continue
+        elif m := re.search(r"Used (\d+) registers", line):
+            usage[name]["registers"] = int(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+    return usage
+
+
 def sass_counts(symbol: str) -> dict:
     """How many of each of SASS_OPS the built library's kernel whose
     mangled name holds ``symbol`` has (cuobjdump --dump-sass)."""
-    cuobjdump = Path(library._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(library.build())],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
     counts = dict.fromkeys(SASS_OPS, 0)
     inside = False
-    for line in sass.splitlines():
+    for line in _dump_sass(library.build()).splitlines():
         if "Function : " in line:
             inside = symbol in line
         elif inside:
@@ -1856,7 +1917,8 @@ _ENTRY_KEYS = ("shape", "max_abs_err", "parity", "ms", "plain_ms", "bytes",
                "ops", "library_ms", "library_note", "peak_ops_per_s")
 # Keys that a kernel's entry carries beside those, where its result has them.
 _EXTRA_KEYS = ("body", "achieved_tflops", "sass", "library_rel_rms_err",
-               "kernel_graph_ms", "body_graph_ms", "body_bound_ms", "host_us",
+               "kernel_graph_ms", "body_graph_ms", "body_bound_ms",
+               "zeroing", "registers", "host_us",
                "library_host_us", "front_ms", "front_old_ms",
                "topk_list_pairs", "topk_list_ms", "topk_list_kernel_graph_ms")
 

@@ -147,10 +147,11 @@ def block_decode(pos, hit, row_blocks, first, meta, off, payload, *,
     a :class:`repro_torch.core.arena.DevicePostings`' tail store. ``cum``
     is the lanes' block-task prefix as :func:`probe_tasks` writes it;
     without it the prefix is computed here by the plain torch ops
-    (:func:`repro_torch.kernels.ref.task_prefix_ref`). On CUDA the kernel
-    strides over the tasks up to that prefix's total, read in device
-    memory, after zeroing the counts on the same stream. No lanes or no
-    blocks launch nothing.
+    (:func:`repro_torch.kernels.ref.task_prefix_ref`). On CUDA a warp a
+    task strides over the tasks up to that prefix's total, read in device
+    memory; the counts are zeroed on the same stream by a kernel that the
+    decode overlaps (programmatic dependent launch) up to its first
+    atomic. No lanes or no blocks launch nothing.
     """
     dev = pos.device
     _require("pos", pos, torch.int32, dev)

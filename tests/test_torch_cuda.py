@@ -553,6 +553,204 @@ def test_block_decode_kernel_matches_plain_on_an_index(cuda_device, corpus):
             np.testing.assert_array_equal(x, y)
 
 
+# B4's grid: 132 · 4 CTAs of four warps, one task a warp at a time
+# (csrc/block_decode.cu, kDecodeBlocks and kThreads).
+B4_GRID_WARPS = 132 * 4 * 4
+
+
+def _tail_store(device, rows, m, dense_words=None) -> DevicePostings:
+    """A tail store of one key a row (keys 10, 11, ...) over ``m`` records;
+    ``dense_words`` (first id, u32 words) appends one more row of one
+    dense-bitmap block with that body, which the encoder would not make
+    at 124 words (it takes a bitmap only where it is the smaller body)."""
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    rec = (np.concatenate(rows) if offsets[-1] else np.zeros(0)).astype(
+        np.int32)
+    tail = P.encode_store(offsets, rec)
+    if dense_words is not None:
+        first, words = dense_words
+        nb = tail.num_blocks
+        tail = P.BlockStore(
+            row_blocks=np.append(tail.row_blocks, nb + 1).astype(np.int32),
+            first=np.append(tail.first, first).astype(np.int32),
+            last=np.append(tail.last, first + 32 * len(words) - 1
+                           ).astype(np.int32),
+            meta=np.append(tail.meta, (P.BLOCK - 1) | (1 << 13)
+                           ).astype(np.uint32),
+            off=np.append(tail.off, tail.off[-1] + len(words)),
+            payload=np.concatenate([tail.payload, words]).astype(np.uint32))
+    post = P.PostingsIndex(
+        keys=np.arange(10, 10 + tail.num_rows, dtype=np.uint32), tail=tail,
+        buf=P.encode_store(np.zeros(1, np.int64), np.zeros(0, np.int32)),
+        num_records=m, tau=np.uint32(0))
+    return DevicePostings.from_postings(post, device)
+
+
+def _decode_both(dpost, lanes, gq, cq):
+    """(kernel's counts, plain version's, block tasks) for query-hash
+    ``lanes``; the wrapper must count one launch."""
+    q = to_tensor(np.asarray(lanes, np.uint32)).to(dpost.device)
+    pos, hit, cum = pm.probe_tasks(dpost.keys, q, dpost.row_blocks)
+    args = (pos, hit, dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
+            dpost.payload)
+    before = pm.block_decode.launches
+    got = pm.block_decode(*args, gq=gq, cq=cq, m=dpost.num_records, cum=cum)
+    assert pm.block_decode.launches == before + 1
+    want = ref.kcount_ref(*args, gq=gq, cq=cq, m=dpost.num_records)
+    return got, want, int(cum[-1])
+
+
+def _lanes(rng, keys, n, miss=0.35):
+    """n query hashes drawn from ``keys``, about ``miss`` of them misses (a
+    hash below every key, or PAD) scattered between them."""
+    lanes = rng.choice(np.asarray(keys, np.uint32), size=n)
+    lost = rng.random(n) < miss
+    return np.where(lost, np.where(rng.random(n) < 0.5, PAD, 5), lanes)
+
+
+@pytest.mark.parametrize("gq, cq", [(1, 20), (1, 37), (3, 350), (5, 301),
+                                    (17, 77)])
+def test_block_decode_kernel_edge_shapes(cuda_device, gq, cq):
+    # m · Gq is not a multiple of 4 and n = Gq · Cq not one of 32: n = 20
+    # is one search level, 37 two, 1,050, 1,505 and 1,309 two past a
+    # partial first level. Rows mix sparse and dense blocks, some ids ≥ m.
+    rng = np.random.default_rng(1000 * gq + cq)
+    m = 1001
+    rows = [np.sort(rng.choice(m + 40, size=int(rng.integers(1, 500)),
+                               replace=False)) for _ in range(60)]
+    dpost = _tail_store(cuda_device, rows, m)
+    got, want, tasks = _decode_both(dpost, _lanes(rng, range(10, 70),
+                                                  gq * cq), gq, cq)
+    assert (m * gq) % 4 != 0 and (gq * cq) % 32 != 0 and tasks > 0
+    assert torch.equal(got, want) and int(got.sum()) > 0
+
+
+def test_block_decode_kernel_strides_past_its_grid(cuda_device):
+    rng = np.random.default_rng(41)
+    m = 20_000
+    rows = [np.sort(rng.choice(m, size=int(rng.integers(1, 1000)),
+                               replace=False)) for _ in range(3000)]
+    dpost = _tail_store(cuda_device, rows, m)
+    got, want, tasks = _decode_both(dpost, _lanes(rng, range(10, 3010),
+                                                  16 * 300, 0.1), 16, 300)
+    assert tasks > 4 * B4_GRID_WARPS
+    assert torch.equal(got, want)
+
+
+def test_block_decode_kernel_extreme_blocks(cuda_device):
+    m = 5000
+    rng = np.random.default_rng(5)
+    # A 124-word dense body with more than 128 set bits (only the first
+    # 128 are ids) running past m.
+    j = np.arange(124)
+    words = ((1 << (j * 7 % 32)) | (1 << ((j * 13 + 5) % 32))).astype(
+        np.uint64)
+    rows = [np.asarray([7]),                                  # one entry
+            np.full(P.BLOCK, 9),                              # 128, bw 0
+            np.concatenate([np.full(P.BLOCK, 3), [4]]),       # 128 + 1
+            np.concatenate([np.arange(0, 254, 2), [2**30 + 300]]),  # bw 31
+            np.asarray([0, 2**31 - 1]),                       # bw 31
+            np.concatenate([[1, 2 + 2**30], 3 + 2**30 + np.arange(126)])]
+    dpost = _tail_store(cuda_device, rows, m, dense_words=(m - 1500, words))
+    meta = dpost.meta.cpu().numpy().astype(np.uint32)
+    cnt, bw = (meta & 0x7F) + 1, (meta >> 8) & 31
+    sparse = (meta >> 13) & 1 == 0
+    assert {1, P.BLOCK} <= set(cnt[sparse & (bw == 0)].tolist())
+    assert P.BLOCK in cnt[sparse & (bw == 31)]
+    off = dpost.off.cpu().numpy()
+    assert off[-1] - off[-2] == 124 and not sparse[-1]
+    keys = np.arange(10, 17)
+    got, want, _ = _decode_both(
+        dpost, np.concatenate([keys, keys[::-1], [PAD, 5], keys[2:5], keys[:5]]),
+        3, 8)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+    assert int(got[m - 1500:].sum()) > 0          # the dense block's ids
+
+
+def _random_csr(rng, nrows_max=20, len_max=350):
+    """The repeats store of tests/test_torch_postings.py: per-row sorted
+    ids, one-entry rows, duplicate ids (which force sparse blocks), dense
+    runs (which pick bitmap blocks), wide-spread ids and empty rows."""
+    rows = []
+    for _ in range(int(rng.integers(1, nrows_max))):
+        n = int(rng.integers(0, len_max))
+        style = int(rng.integers(0, 5))
+        if style == 0:
+            ids = np.sort(rng.integers(0, 8000, size=n))
+        elif style == 1:
+            ids = (np.sort(rng.choice(2 * n + 1, size=n, replace=False))
+                   + int(rng.integers(0, 64)))
+        elif style == 2:
+            ids = np.sort(rng.choice(2**30, size=n, replace=False))
+        elif style == 3:
+            ids = np.sort(rng.integers(0, 40, size=n))
+        else:
+            ids = rng.integers(0, 5000, size=min(n, 1))
+        rows.append(ids.astype(np.int64))
+    return rows
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_block_decode_kernel_on_repeated_ids(cuda_device, seed):
+    rng = np.random.default_rng(10 + seed)
+    rows = _random_csr(rng)
+    dpost = _tail_store(cuda_device, rows, 8000)
+    got, want, tasks = _decode_both(
+        dpost, _lanes(rng, range(10, 10 + len(rows)), 3 * 45), 3, 45)
+    assert torch.equal(got, want)
+
+
+def test_block_decode_entry_refuses_shapes_past_32_bit_indices(cuda_device):
+    # The kernel indexes lanes and count cells in 32 bits: its C entry
+    # refuses n ≥ 2^31 or m · Gq ≥ 2^31 before it launches anything (so
+    # the null pointers here are never read).
+    from repro_torch.kernels.library import library
+    invalid = 1                                   # cudaErrorInvalidValue
+    dev = cuda_device.index or 0
+    for n, gq, cq, m in ((2**31, 2, 2**30, 10), (16, 8, 2, 2**28),
+                         (16, 1, 16, 2**31)):
+        assert library().block_decode_launch(
+            None, None, n, None, None, None, None, 1, None, 1, gq, cq, m,
+            None, 1, dev, None) == invalid
+
+
+def test_block_decode_zeroes_the_counts_before_every_decode(cuda_device):
+    rng = np.random.default_rng(17)
+    m = 3001
+    rows = [np.sort(rng.choice(m, size=int(rng.integers(1, 600)),
+                               replace=False)) for _ in range(200)]
+    dpost = _tail_store(cuda_device, rows, m)
+    q = to_tensor(_lanes(rng, range(10, 210), 5 * 61)).to(cuda_device)
+    pos, hit, cum = pm.probe_tasks(dpost.keys, q, dpost.row_blocks)
+    args = (pos, hit, dpost.row_blocks, dpost.first, dpost.meta, dpost.off,
+            dpost.payload)
+    kw = {"gq": 5, "cq": 61, "m": m}
+    want = ref.kcount_ref(*args, **kw)
+    # Calls one after another on one stream, each into the counts the
+    # last one freed (the allocator hands the block back), no sync
+    # between: a decode that ran ahead of its zeroing would count twice.
+    junk = torch.full((m, 5), 7, dtype=torch.int32, device=cuda_device)
+    del junk
+    outs = []
+    for _ in range(4):
+        got = pm.block_decode(*args, cum=cum, **kw)
+        outs.append(got.clone())
+        del got
+    assert all(torch.equal(o, want) for o in outs)
+    # One call captured in a CUDA graph, replayed twice onto its counts.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = pm.block_decode.launches
+    with torch.cuda.graph(graph, stream=side):
+        got = pm.block_decode(*args, cum=cum, **kw)
+    assert pm.block_decode.launches == before + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 def test_device_encoded_postings_equal_host_postings(cuda_device):
     recs = generate_dataset(m=3000, n_elems=4000, alpha_freq=1.14,
                             alpha_size=4.95, size_min=10, size_max=300,

@@ -268,6 +268,30 @@ def test_kcount_ref_matches_reference_merge(which, corpus, indexes,
     assert want.sum() > 0
 
 
+@pytest.mark.parametrize("gq", [1, 3, 17])
+def test_block_decode_matches_reference_merge_at_odd_lane_counts(
+        gq, corpus, indexes):
+    # Gq queries cut from the corpus queries from the third on (the first
+    # to share tail hashes with many records; taken again from the start
+    # past their end): n = Gq · Cq lanes, not a multiple of 32.
+    port, refi = indexes
+    qs = corpus[2]
+    queries = [qs[(2 + i) % len(qs)] for i in range(gq)]
+    dpost = port.core.sketches.device_postings(CPU)
+    qp, _, _, _ = port._plan_queries(queries)
+    cq = qp.values.shape[1]
+    assert qp.values.shape[0] == gq and (gq * cq) % 32 != 0
+    pos, hit, cum = pm.probe_tasks(dpost.keys, qp.values.reshape(-1),
+                                   dpost.row_blocks)
+    got = pm.block_decode(pos, hit, dpost.row_blocks, dpost.first,
+                          dpost.meta, dpost.off, dpost.payload, gq=gq, cq=cq,
+                          m=port.num_records, cum=cum)
+    assert got.dtype == torch.int32 and got.shape == (port.num_records, gq)
+    want = _merge_counts(refi, queries, port.num_records)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 0
+
+
 @pytest.mark.parametrize("which", ["corpus", "dense"])
 def test_block_decode_takes_the_probe_prefix(which, corpus, indexes,
                                              dense_indexes):

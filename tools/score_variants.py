@@ -1,31 +1,38 @@
 #!/usr/bin/env python3
-"""Bare launch time of B1 or B5 kernel sources side by side, in turns, on
-the card.
+"""Bare launch time of B1, B4 or B5 kernel sources side by side, in turns,
+on the card.
 
-    python3 tools/score_variants.py --kernel gbkmv_score|gather_score \
+    python3 tools/score_variants.py \
+        --kernel gbkmv_score|gather_score|block_decode \
         NAME=DIR [NAME=DIR ...] [--tag X]
 
 Each DIR holds the kernel's source (``gbkmv_score.cu`` for the dense
-scorer B1, ``gather_score.cu`` for the candidate verify B5) and the
+scorer B1, ``gather_score.cu`` for the candidate verify B5,
+``block_decode.cu`` for the block decode and K∩ scatter B4) and the
 headers it includes: the ``src/repro_torch/kernels/csrc`` of any tree, for
 example a ``git archive`` of another commit unpacked under ``build/``,
 edited there if a variant is wanted. Each is built alone with the kernel
 library's nvcc flags into ``build/score_variants/KERNEL/NAME/`` (all
 builds started together) and called through its own C entry
-(``gbkmv_score_launch`` or ``gather_score_launch``), whose arguments are
-passed by the names its source declares (an edited copy may drop the
-card index, for one).
+(``<kernel>_launch``), whose arguments are passed by the names and types
+its source declares (an edited copy may drop the card index, for one).
 ``library`` is this tree's own kernel and is always timed.
 
 Inputs: ``pair_score_steps.py``'s NETFLIX deployment (480,189 records,
 budget 10 % of the element ids) and batch 0's 16-query pack. B1 scores
 that pack against every record; B5 scores two pair lists (batch 0's
 72,018 candidates at t = 0.7 and query 0's whole bound-ordered top-k
-list). Every variant's output is compared bit for bit with this tree's
-wrapper (``equal``: a variant that differs, such as a yardstick that only
-stores, is still timed and is flagged there), then each is timed as one
-launch of a CUDA graph of 20 (``chip_smoke.graph_ms``) in 7 rounds, the
-order reversed every other round. Also per variant: its ptxas register
+list); B4 decodes batch 0's probe output (``probe_tasks``) and that of
+``chip_smoke.dense_block_index``'s batch, whose tail has dense-bitmap
+blocks, each both as the wrapper launches it (``NAME/bare``: the counts'
+zeroing and the decode) and without the zeroing (``NAME/body``: the
+decode adding onto the counts as they are). Every variant's output is
+compared bit for bit with this tree's wrapper (B4's with the plain
+version, ``ref.kcount_ref``, on the card) (``equal``: a variant that
+differs, such as a yardstick that only stores, is still timed and is
+flagged there), then each is timed as one launch of a CUDA graph of 20
+(``chip_smoke.graph_ms``) in 7 rounds, the order reversed every other
+round. Also per variant: its ptxas register
 and spill lines and the SASS instruction count of each of its kernels
 (``cuobjdump --dump-sass``). Prints one JSON object and writes it to
 ``chiprun_out/score_variants_<kernel>_<tag>.json``. Needs an NVIDIA card.
@@ -48,41 +55,32 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import pair_score_steps as steps  # noqa: E402  (puts the repo on the path)
-from chip_smoke import graph_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    dense_block_index, graph_ms, sass_instructions)
+from repro_torch.core import gbkmv  # noqa: E402
 from repro_torch.core.estimators import _align_buf_widths  # noqa: E402
 from repro_torch.kernels import gather_score as gs_mod, library  # noqa: E402
 from repro_torch.kernels import gbkmv_score as score_mod  # noqa: E402
+from repro_torch.kernels import postings_merge as pm, ref  # noqa: E402
 
 ROUNDS = 7
-KERNELS = ("gbkmv_score", "gather_score")
-_POINTERS = {"xv", "xt", "xb", "qv", "qt", "qb", "qs", "cand_rec", "cand_q",
-             "out", "stream"}
-_INT64 = {"m", "p"}
-_SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+\S")
+KERNELS = ("gbkmv_score", "gather_score", "block_decode")
 
 
-def entry_names(source: str, kernel: str) -> list[str]:
-    """The parameter names of a source's ``<kernel>_launch``."""
+def entry_params(source: str, kernel: str) -> list[tuple[str, type]]:
+    """(name, ctypes type) of each parameter of a source's
+    ``<kernel>_launch``: pointers (and the stream) as void*, ``int64_t``
+    as a 64-bit int, anything else as an int."""
     m = re.search(rf'extern "C" int {kernel}_launch\(([^)]*)\)', source)
     if m is None:
         raise ValueError(f"no {kernel}_launch in the source")
-    return [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
-
-
-def sass_counts(lib: Path) -> dict:
-    """SASS instructions of each kernel in a built library."""
-    cuobjdump = Path(library._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function : " in line:
-            name = line.split("Function : ")[-1].strip()
-            counts[name] = 0
-        elif name is not None and _SASS_INSTRUCTION.search(line):
-            counts[name] += 1
-    return counts
+    params = []
+    for p in m.group(1).split(","):
+        decl = p.split()
+        params.append((decl[-1].lstrip("*"),
+                       ctypes.c_void_p if "*" in p else
+                       ctypes.c_int64 if "int64_t" in decl else ctypes.c_int))
+    return params
 
 
 def build(kernel: str, variants: dict[str, Path]) -> dict:
@@ -102,17 +100,16 @@ def build(kernel: str, variants: dict[str, Path]) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name} does not build:\n{log}")
-        names = entry_names((variants[name] / f"{kernel}.cu").read_text(),
-                            kernel)
+        params = entry_params(
+            (variants[name] / f"{kernel}.cu").read_text(), kernel)
+        names = [n for n, _ in params]
         fn = getattr(ctypes.CDLL(str(out / "lib.so")), f"{kernel}_launch")
-        fn.argtypes = [ctypes.c_void_p if n in _POINTERS else
-                       ctypes.c_int64 if n in _INT64 else ctypes.c_int
-                       for n in names]
+        fn.argtypes = [t for _, t in params]
         fn.restype = ctypes.c_int
         built[name] = (fn, names,
                        [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln],
-                       sass_counts(out / "lib.so"))
+                       sass_instructions(out / "lib.so"))
     return built
 
 
@@ -145,8 +142,13 @@ def time_in_turns(built: dict, cols, want, rec=None, q=None) -> dict:
                       f"{name} launch")
         torch.cuda.synchronize()
         equal[name] = bool(torch.equal(outs[name], want))
-    times = {k: [] for k in built}
-    order = list(built)
+    return in_turns(launch, equal)
+
+
+def in_turns(launch: dict, equal: dict) -> dict:
+    """Each launch's bare time over ROUNDS rounds in turns."""
+    times = {k: [] for k in launch}
+    order = list(launch)
     for rnd in range(ROUNDS):
         for name in order if rnd % 2 == 0 else order[::-1]:
             times[name].append(graph_ms(launch[name]))
@@ -154,6 +156,42 @@ def time_in_turns(built: dict, cols, want, rec=None, q=None) -> dict:
             "median": {k: float(np.median(v)) for k, v in times.items()},
             "min": {k: min(v) for k, v in times.items()},
             "max": {k: max(v) for k, v in times.items()}}
+
+
+def decode_turns(built: dict, dpost, pos, hit, cum, gq: int, cq: int
+                 ) -> dict:
+    """B4: every variant bare and body, its counts against the plain
+    version's on the card, in turns."""
+    dev = pos.device
+    m = dpost.num_records
+    want = ref.kcount_ref(pos, hit, dpost.row_blocks, dpost.first,
+                          dpost.meta, dpost.off, dpost.payload, gq=gq, cq=cq,
+                          m=m, cum=cum)
+    args = {"pos": pos.data_ptr(), "cum": cum.data_ptr(), "n": pos.numel(),
+            "row_blocks": dpost.row_blocks.data_ptr(),
+            "first": dpost.first.data_ptr(), "meta": dpost.meta.data_ptr(),
+            "off": dpost.off.data_ptr(), "nb": dpost.first.numel(),
+            "payload": dpost.payload.data_ptr(),
+            "p_words": dpost.payload.numel(), "gq": gq, "cq": cq, "m": m,
+            "device": dev.index}
+    # Each variant writes its own counts, kept alive while its launches
+    # are timed (a CUDA graph's capture empties the allocator's cache).
+    outs = {k: torch.full((m, gq), 7, dtype=torch.int32, device=dev)
+            for k in built}
+    launch, equal = {}, {}
+    for name, (fn, names, _, _) in built.items():
+        for zero in (1, 0):
+            a = {**args, "kcount": outs[name].data_ptr(), "zero_counts": zero}
+            launch[f"{name}/{'bare' if zero else 'body'}"] = (
+                lambda st, fn=fn, names=names, a=a:
+                fn(*[st if n == "stream" else a[n] for n in names]))
+        library.check(launch[f"{name}/bare"](
+            library.current_stream_ptr(dev.index)), f"{name} launch")
+        torch.cuda.synchronize()
+        equal[name] = bool(torch.equal(outs[name], want))
+    res = in_turns(launch, equal)
+    res.update(n=pos.numel(), m=m, gq=gq, cq=cq, tasks=int(cum[-1]))
+    return res
 
 
 def main(argv=None) -> int:
@@ -181,7 +219,18 @@ def main(argv=None) -> int:
     result = {"card": smi, "kernel": args.kernel,
               "ptxas": {k: v[2] for k, v in built.items()},
               "sass_instructions": {k: v[3] for k, v in built.items()}}
-    if args.kernel == "gbkmv_score":
+    if args.kernel == "block_decode":
+        dense_index, dense_queries = dense_block_index()
+        for lname, (idx, qs) in {"batch0": (index, queries),
+                                 "dense_store": (dense_index,
+                                                 dense_queries)}.items():
+            dpost = idx.core.sketches.device_postings(dev)
+            qp = gbkmv.sketch_query_batch(idx.core, qs).to(dev)
+            gq, cq = qp.values.shape
+            pos, hit, cum = pm.probe_tasks(dpost.keys, qp.values.reshape(-1),
+                                           dpost.row_blocks)
+            result[lname] = decode_turns(built, dpost, pos, hit, cum, gq, cq)
+    elif args.kernel == "gbkmv_score":
         qa, xa = _align_buf_widths(index._plan_queries(queries)[0], x)
         qa = qa.to(dev)
         cols = (xa.values, xa.thresh, xa.buf, qa.values, qa.thresh, qa.buf,
