@@ -11,7 +11,10 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
 
   card     the card's name and power limit, versions, the kernels' build
   build    device build (B2 kernel) bit-identical to the host build, in
-           both τ modes; host and device seconds
+           both τ modes; host and device seconds, and the device part's
+           stages one by one with a sync after each (``device_split_ms``,
+           taken before the counted run and held equal to the whole
+           function's pack)
   query    64 batches of 16 queries at t ∈ {0.5, 0.7, 0.9} and top-10 for
            64 queries on the dense route; hits and rankings of 4 batches
            checked against the host numpy route over all records; batch
@@ -46,8 +49,10 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            kernels count their own launches on the card
   parity   each kernel against its plain PyTorch version on the card, at
            the main paths' shapes and on edge cases: exact equality for
-           B1-B5 (B1 also at Gq = 1, 3 and 17 through ops.score_index and
-           with record and query thresholds below the global τ, at
+           B1-B5 (B2 in both forms also on the tail stream 1-3 words off
+           16-B alignment and at lengths 5, 257 and n - 1, with its bare
+           time in both forms, registers and SASS; B1 also at Gq = 1, 3
+           and 17 through ops.score_index and with record and query thresholds below the global τ, at
            NETFLIX's M; B5 and B1's entries also at the first top-10's whole
            bound-ordered list, and on B5's own edges: c % 4 != 0, W = 0,
            W = 9, P = 1, P not a multiple of its CTA's pairs, unaligned
@@ -105,9 +110,10 @@ from repro_torch.core.arena import DevicePostings  # noqa: E402
 from repro_torch.core.estimators import (  # noqa: E402
     containment_matrix, gbkmv_containment_np)
 from repro_torch.core.hashing import (  # noqa: E402
-    PAD, as_bits, as_u64, to_numpy, to_tensor)
+    PAD, as_bits, as_u64, seed_offset, to_numpy, to_tensor)
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.core.sketches import RaggedBatch  # noqa: E402
+from repro_torch.core.sketches import (  # noqa: E402
+    RaggedBatch, _resolve_capacity)
 from repro_torch.data.datasets import SPECS  # noqa: E402
 from repro_torch.data.synth import generate_dataset, make_query_workload  # noqa: E402
 from repro_torch.kernels import library, postings_merge, ref  # noqa: E402
@@ -118,7 +124,7 @@ from repro_torch.kernels.gather_score import (  # noqa: E402
 from repro_torch.kernels.gbkmv_score import gbkmv_score  # noqa: E402
 from repro_torch.kernels.ops import score_index  # noqa: E402
 from repro_torch.kernels.hash_threshold import (  # noqa: E402
-    fused_build_columns, fused_encode_postings, hash_threshold)
+    _fused_pack, fused_build_columns, fused_encode_postings, hash_threshold)
 from repro_torch.kernels.postings_merge import (  # noqa: E402
     block_decode, fence_shift, postings_probe, probe_tasks)
 from repro_torch.planner import (  # noqa: E402
@@ -131,6 +137,7 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     causal_attention, causal_attention_plain)
 from repro_torch.planner import device as planner_device  # noqa: E402
+from repro_torch.sketchindex.build import histogram_tau  # noqa: E402
 
 NUM_RECORDS = 480_189      # paper Table II, Netflix
 UNIVERSE = 17_770
@@ -350,20 +357,109 @@ def _host_columns(s) -> dict:
             "sizes": s.sizes.cpu().numpy()}
 
 
-def phase_build(batch: RaggedBatch, budget: int):
-    """The api's device build in both τ modes, each checked bit for bit
-    against the host build; the exact-mode index serves the queries."""
-    # The host half of construction, timed on its own.
+def host_part(batch: RaggedBatch, budget: int, r="auto") -> SimpleNamespace:
+    """The host half of a GB-KMV build, as ``gbkmv.build_gbkmv`` runs it
+    before the fused device build: r (the cost model's, unless given), the
+    buffer elements' membership of every element id, the bitmaps and the
+    tail budget (floored at one slot per record), with its host seconds."""
     t0 = time.perf_counter()
     uniq, counts = gbkmv.element_frequencies_csr(batch)
-    r = gbkmv._auto_buffer_bits(counts, batch.sizes.astype(np.int64), budget,
-                                batch.num_records)
+    if r == "auto":
+        r = gbkmv._auto_buffer_bits(counts, batch.sizes.astype(np.int64),
+                                    budget, batch.num_records)
     top = gbkmv.choose_top_elements_csr(uniq, counts, r)
     is_top, bit = gbkmv.top_membership(batch.ids, top)
     bitmaps = gbkmv.make_bitmaps(batch, top, membership=(is_top, bit))
-    host_part_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     tail_budget = max(budget - batch.num_records * (-(-r // 32) if r else 0),
                       batch.num_records)
+    return SimpleNamespace(r=r, is_top=is_top, bitmaps=bitmaps,
+                           tail_budget=tail_budget, seconds=seconds)
+
+
+def u32_ids(ids: np.ndarray) -> torch.Tensor:
+    """An id stream as the device build hands it to B2: u32 bit patterns
+    (int32), each id cut to its low 32 bits, on the CPU."""
+    return to_tensor((np.asarray(ids).astype(np.uint64)
+                      & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+TAU_MODES = ("exact", "histogram")
+
+
+def device_split(batch: RaggedBatch, hp: SimpleNamespace, tau_mode: str
+                 ) -> dict:
+    """Host-clock ms of each stage of ``fused_build_columns`` (the device
+    part of a build), called one by one here in the order the function
+    calls them, with a sync after each. The function runs whole first
+    (which also warms the stages), and the split's pack and τ must equal
+    its own."""
+    want, tau_want = fused_build_columns(
+        batch, ~hp.is_top, hp.tail_budget, tau_mode=tau_mode,
+        bitmaps=hp.bitmaps, device=DEV)
+    m, budget = batch.num_records, hp.tail_budget
+    ms = {}
+    sync()
+    t = [time.perf_counter()]
+
+    def lap(stage):
+        sync()
+        now = time.perf_counter()
+        ms[stage] = (now - t[0]) * 1e3
+        t[0] = now
+
+    tail_mask = ~hp.is_top
+    ids32 = u32_ids(np.asarray(batch.ids)[tail_mask])
+    row32 = torch.from_numpy(batch.row_index()[tail_mask].astype(np.int32))
+    lap("host_mask_row_u32")
+    ids32, row_t = ids32.to(DEV), row32.to(DEV)
+    lap("h2d")
+    h32, _ = hash_threshold(ids32, 0)
+    lap("b2")
+    h = as_u64(h32)
+    lap("as_u64")
+    n = h.numel()
+    if budget >= n:
+        tau = torch.tensor(int(PAD) - 1, dtype=torch.int64, device=DEV)
+    elif tau_mode == "histogram":
+        tau = histogram_tau(h, budget)
+    else:
+        tau = torch.sort(h).values[budget - 1]
+    lap("tau")
+    keep = torch.ones_like(h, dtype=torch.bool) if budget >= n else h <= tau
+    rkey = torch.where(keep, row_t.to(torch.int64), m)
+    hkey = torch.where(keep, h, int(PAD))
+    key = torch.sort((rkey << 32) | hkey).values
+    rs, hs = key >> 32, key & 0xFFFFFFFF
+    lap("keep_sort")
+    counts = torch.zeros(m + 1, dtype=torch.int64, device=DEV).index_add_(
+        0, rs, torch.ones_like(rs))[:m]
+    starts = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    lap("counts_prefix")
+    max_count, tau_h = torch.stack([counts.max(), tau]).tolist()
+    lap("host_read")
+    values, lengths, thresh = _fused_pack(
+        hs, rs, counts, starts, tau, m=m,
+        cap=_resolve_capacity(max_count, None, 8))
+    lap("pack")
+    buf = to_tensor(hp.bitmaps).to(DEV)
+    sizes = torch.from_numpy(batch.sizes).to(DEV)
+    lap("buffer_upload")
+    got = (values, lengths, thresh, buf, sizes)
+    require(all(torch.equal(a, b) for a, b in zip(got, want.columns()))
+            and np.uint32(tau_h) == tau_want,
+            f"{tau_mode} build's stages one by one equal fused_build_columns")
+    return {**ms, "total": sum(ms.values())}
+
+
+def phase_build(batch: RaggedBatch, budget: int, hp: SimpleNamespace,
+                split: dict):
+    """The api's device build in both τ modes, each checked bit for bit
+    against the host build; the exact-mode index serves the queries.
+    ``hp`` is the build's host half (:func:`host_part`), ``split`` each τ
+    mode's :func:`device_split`, both taken before the counted run."""
+    r, is_top, bitmaps, tail_budget = hp.r, hp.is_top, hp.bitmaps, \
+        hp.tail_budget
 
     # The tail budget is floored at one slot per record; where the buffer
     # words take most of the budget, the floor is what the tail gets.
@@ -371,9 +467,9 @@ def phase_build(batch: RaggedBatch, budget: int):
            "element_ids": batch.total, "budget": budget, "r": r,
            "tail_ids": int((~is_top).sum()), "tail_budget": tail_budget,
            "tail_budget_at_floor": tail_budget == batch.num_records,
-           "host_part_s": host_part_s}
+           "host_part_s": hp.seconds}
     serving = None
-    for tau_mode in ("exact", "histogram"):
+    for tau_mode in TAU_MODES:
         t0 = time.perf_counter()
         dev = api.build("gbkmv", batch, budget, tau_mode=tau_mode)
         sync()
@@ -413,6 +509,7 @@ def phase_build(batch: RaggedBatch, budget: int):
                          "arena_bytes": dev.core.sketches.nbytes(),
                          "api_build_s": api_build_s,
                          "device_part_s": device_part_s,
+                         "device_split_ms": split[tau_mode],
                          "host_build_s": host_build_s,
                          "identical_to_host_build": True}
         if tau_mode == "exact":
@@ -1088,18 +1185,31 @@ def _task_blocks(pos, hit, row_blocks):
     return rs[lane] + t - (cum[lane] - nblk[lane])
 
 
-def dense_block_index():
-    """(index, queries): an index whose tail has dense-bitmap blocks, by the
-    reference's recipe (tests/test_device_pipeline.py:40, ``dense_corpus``),
-    r = 2, budget 20,000, eager postings, and a batch of GQ queries (the
-    first half of each of its first records)."""
+# The dense-block deployment's build: r and budget.
+DENSE_BLOCK_R = 2
+DENSE_BLOCK_BUDGET = 20_000
+
+
+def dense_block_records() -> list:
+    """The records of :func:`dense_block_index`, by the reference's recipe
+    (tests/test_device_pipeline.py:40, ``dense_corpus``)."""
     rng = np.random.default_rng(7)
     recs = []
     for _ in range(600):
         base = rng.choice(3000, size=rng.integers(2, 5), replace=False) + 100
         common = [c for c in range(10) if rng.random() < 0.85]
         recs.append(np.unique(np.concatenate([common, base]).astype(np.int64)))
-    index = api.build("gbkmv", recs, 20_000, r=2, postings="eager")
+    return recs
+
+
+def dense_block_index():
+    """(index, queries): an index whose tail has dense-bitmap blocks
+    (:func:`dense_block_records`), r = 2, budget 20,000, eager postings,
+    and a batch of GQ queries (the first half of each of its first
+    records)."""
+    recs = dense_block_records()
+    index = api.build("gbkmv", recs, DENSE_BLOCK_BUDGET, r=DENSE_BLOCK_R,
+                      postings="eager")
     return index, [r[: max(2, len(r) // 2)] for r in recs[:GQ]]
 
 
@@ -1139,30 +1249,53 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
     edge = np.asarray([0, 1, 2**31, 2**32 - 1, 2**32, 2**32 + 5, 2**40 + 7],
                       np.int64)
     ids = np.concatenate([tail, edge])
-    ids32 = to_tensor((ids.astype(np.uint64) & np.uint64(0xFFFFFFFF))
-                      .astype(np.uint32)).to(DEV)
+    ids32 = u32_ids(ids).to(DEV)
     ids64 = torch.from_numpy(ids).to(DEV)
-    err = 0
-    for tau in (0, int(index.core.tau), int(PAD)):
-        h, keep = hash_threshold(ids32, 0, tau)
-        h_want, keep_want = ref.hash_threshold_ref(ids64, 0, tau)
-        sync()
-        require(torch.equal(as_u64(h), h_want)
-                and torch.equal(keep.bool(), keep_want),
-                f"hash_threshold kernel equals plain version at tau={tau}")
-        err = max(err, int((as_u64(h) - h_want).abs().max()))
-    h, keep = hash_threshold(ids32, 0)       # the device build's form
-    sync()
-    require(keep is None and torch.equal(as_u64(h), h_want),
-            "hash_threshold kernel (hashes only) equals plain version")
+    tau_i = int(index.core.tau)
+    err, cases = 0, []
+    # The whole stream; the stream 1-3 words in (its pointer off 16-B
+    # alignment, the outputs on it: the scalar body); lengths that are not
+    # multiples of four.
+    for lead, stop in ((0, len(ids)), (1, len(ids)), (2, len(ids)),
+                       (3, len(ids)), (0, 5), (0, 257), (0, len(ids) - 1)):
+        v32, v64 = ids32[lead:stop], ids64[lead:stop]
+        for tau in (None, 0, tau_i, int(PAD)):
+            h, keep = hash_threshold(v32, 0, tau)
+            h_want, keep_want = ref.hash_threshold_ref(v64, 0, tau)
+            sync()
+            require(torch.equal(as_u64(h), h_want)
+                    and (keep is None if tau is None
+                         else torch.equal(keep.bool(), keep_want)),
+                    f"hash_threshold kernel equals plain version at "
+                    f"ids[{lead}:{stop}], tau={tau}")
+            err = max(err, int((as_u64(h) - h_want).abs().max()))
+        cases.append({"lead": lead, "n": v32.numel(),
+                      "words_past_16B": v32.data_ptr() % 16 // 4})
     tail32 = ids32[: len(tail)]
     n = tail32.numel()
-    # Timed as the device build calls it: hashes only, 4 B in, 4 B out.
+    lib = library.library()
+    h_o, k_o = torch.empty_like(tail32), torch.empty_like(tail32)
+
+    def bare_b2(keep: bool):
+        return lambda st: lib.hash_threshold_launch(
+            tail32.data_ptr(), h_o.data_ptr(),
+            k_o.data_ptr() if keep else None, n, seed_offset(0), tau_i,
+            tail32.device.index, st)
+
+    # Timed as the device build calls it: hashes only, 4 B in, 4 B out; the
+    # bare launch also with the keep flags (4 B more out).
     results["hash_threshold"] = {
         "shape": [n], "max_abs_err": float(err), "parity": "exact",
         "ms": cuda_ms(lambda: hash_threshold(tail32, 0), 50),
+        "kernel_graph_ms": graph_ms(bare_b2(False)),
+        "kernel_graph_keep_ms": graph_ms(bare_b2(True)),
+        "keep_bound_ms": 12 * n / HBM_BYTES_PER_S * 1e3,
+        "host_us": median_host_us(lambda: hash_threshold(tail32, 0)),
+        "registers": ptxas_usage("hash_threshold.cu"),
+        "sass": {k: v for k, v in sass_instructions(library.build()).items()
+                 if "hash_threshold" in k},
         "plain_ms": cuda_ms(lambda: ref.hash_threshold_ref(tail32, 0, None), 5),
-        "bytes": 8 * n, "ops": 11 * n,
+        "cases": cases, "bytes": 8 * n, "ops": 11 * n,
     }
 
     # -- B1 at the main path's shapes plus edge cases --------------------------
@@ -1917,7 +2050,8 @@ _ENTRY_KEYS = ("shape", "max_abs_err", "parity", "ms", "plain_ms", "bytes",
                "ops", "library_ms", "library_note", "peak_ops_per_s")
 # Keys that a kernel's entry carries beside those, where its result has them.
 _EXTRA_KEYS = ("body", "achieved_tflops", "sass", "library_rel_rms_err",
-               "kernel_graph_ms", "body_graph_ms", "body_bound_ms",
+               "kernel_graph_ms", "kernel_graph_keep_ms", "keep_bound_ms",
+               "body_graph_ms", "body_bound_ms",
                "zeroing", "registers", "host_us",
                "library_host_us", "front_ms", "front_old_ms",
                "topk_list_pairs", "topk_list_ms", "topk_list_kernel_graph_ms")
@@ -1955,8 +2089,12 @@ def main(argv=None) -> int:
         sync()
         return {name: c.launches for name, c in COUNTERS.items()}
 
+    # The build's host half, and its device part stage by stage: before
+    # the counted run, as its stages re-run B2.
+    hp = host_part(batch, budget)
+    split = {mode: device_split(batch, hp, mode) for mode in TAU_MODES}
     reset()
-    index, tail_mask = phase_build(batch, budget)
+    index, tail_mask = phase_build(batch, budget, hp, split)
     hits_seen, topk_seen, topk_queries = phase_query(index, batches)
     phase_save(index, batches, hits_seen, topk_seen, topk_queries)
     launches = {"dense": read()}

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.hashing import (PAD, as_bits, as_u64, seed_offset,
                                       to_tensor)
 from repro_torch.kernels import ref
-from repro_torch.kernels.library import check, library
+from repro_torch.kernels.library import check, current_stream_ptr, library
 
 _PAD = int(PAD)
 
@@ -44,22 +44,22 @@ def hash_threshold(ids: torch.Tensor, seed: int, tau: int | None = None
         tau = int(tau)
         if not 0 <= tau <= _PAD:
             raise ValueError(f"tau must be a u32 value, got {tau}")
-    if ids.device.type == "cpu":
+    dev = ids.device
+    if dev.type == "cpu":
         h, keep = ref.hash_threshold_ref(ids, seed, tau)
         return as_bits(h), None if keep is None else keep.to(torch.int32)
-    if ids.device.type != "cuda":
-        raise ValueError(f"no kernel for device {ids.device}")
-    h = torch.empty_like(ids)
-    keep = None if tau is None else torch.empty_like(ids)
-    if ids.numel():
-        lib = library()
-        with torch.cuda.device(ids.device):
-            err = lib.hash_threshold_launch(
-                ids.data_ptr(), h.data_ptr(),
-                None if keep is None else keep.data_ptr(), ids.numel(),
-                seed_offset(seed), 0 if tau is None else tau,
-                torch.cuda.current_stream().cuda_stream)
-        check(err, "hash_threshold_launch")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    n = ids.numel()
+    h = torch.empty(n, dtype=torch.int32, device=dev)
+    keep = None if tau is None else torch.empty(n, dtype=torch.int32,
+                                                device=dev)
+    if n:
+        check(library().hash_threshold_launch(
+            ids.data_ptr(), h.data_ptr(),
+            None if keep is None else keep.data_ptr(), n, seed_offset(seed),
+            0 if tau is None else tau, dev.index,
+            current_stream_ptr(dev.index)), "hash_threshold_launch")
         hash_threshold.launches += 1
     return h, keep
 

@@ -40,7 +40,8 @@ _F32 = ctypes.c_float
 # Every C entry point, with its argument types (pointers and the stream
 # as void*, so ctypes never cuts them to 32 bits).
 _SIGNATURES = {
-    "hash_threshold_launch": ([_P, _P, _P, _I64, _U32, _U32, _P], _I32),
+    "hash_threshold_launch": ([_P, _P, _P, _I64, _U32, _U32, _I32, _P],
+                              _I32),
     "gbkmv_score_launch": ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P,
                             _I32, _I32, _P, _I32, _P], _I32),
     "gbkmv_score_pack_bytes": ([_I32, _I32, _I32], _I64),

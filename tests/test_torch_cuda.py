@@ -19,10 +19,11 @@ import torch
 from repro_torch import api
 from repro_torch.core import gbkmv
 from repro_torch.core.arena import DevicePostings
-from repro_torch.core.hashing import PAD, as_u64, to_numpy, to_tensor
+from repro_torch.core.hashing import (PAD, as_u64, seed_offset, to_numpy,
+                                      to_tensor)
 from repro_torch.data.synth import generate_dataset, make_query_workload
 from repro_torch.kernels import gather_score as gs_mod
-from repro_torch.kernels import gbkmv_score as score_mod, ops, ref
+from repro_torch.kernels import gbkmv_score as score_mod, library, ops, ref
 from repro_torch.kernels import postings_merge as pm
 from repro_torch.kernels.flash_attention import body_launches, flash_attention
 from repro_torch.kernels.hash_threshold import hash_threshold
@@ -102,6 +103,107 @@ def test_hash_threshold_kernel_matches_plain(cuda_device):
     assert torch.equal(as_u64(h), ref.hash_threshold_ref(ids64, 9, None)[0])
     empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
     assert hash_threshold(empty, 0, 5)[0].numel() == 0
+
+
+B2_EDGE_IDS = np.asarray([0, 1, 2**31, 2**32 - 1, 2**32, 2**32 + 5, 2**40 + 7])
+
+
+def _b2_ids(n, lead, device):
+    """(ids as u32 bit patterns, the same ids as int64) on ``device``: n
+    ids ``lead`` words past the start of their allocation, so ``lead``
+    words past a 16-B boundary."""
+    rng = np.random.default_rng(1000 * n + lead)
+    ids = rng.integers(0, 2**34, size=n + lead)
+    k = min(len(B2_EDGE_IDS), n)
+    ids[lead:lead + k] = B2_EDGE_IDS[:k]
+    ids32 = to_tensor((ids.astype(np.uint64) & np.uint64(0xFFFFFFFF))
+                      .astype(np.uint32)).to(device)
+    return ids32[lead:], torch.from_numpy(ids).to(device)[lead:]
+
+
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 255, 257, 100_010])
+def test_hash_threshold_kernel_lengths_and_offsets(cuda_device, n, lead):
+    """B2 at lengths around its four-id vectors, with the ids 0-3 words
+    past a 16-B boundary (the outputs are aligned, so a lead of 1-3 takes
+    the scalar body), in both forms, at τ = 0, a build's τ and PAD."""
+    ids32, ids64 = _b2_ids(n, lead, cuda_device)
+    assert ids32.data_ptr() % 16 == 4 * lead
+    h_want = ref.hash_threshold_ref(ids64, 9, None)[0]
+    # The exact τ of a budget of a tenth of the ids, as the build picks it.
+    tau_build = int(torch.sort(h_want).values[n // 10])
+    for tau in (None, 0, tau_build, int(PAD)):
+        before = hash_threshold.launches
+        h, keep = hash_threshold(ids32, 9, tau)
+        assert hash_threshold.launches == before + 1
+        assert torch.equal(as_u64(h), h_want)
+        if tau is None:
+            assert keep is None
+        else:
+            assert torch.equal(keep.bool(),
+                               ref.hash_threshold_ref(ids64, 9, tau)[1])
+
+
+@pytest.mark.parametrize("ids_lead,h_lead,k_lead", [
+    (0, 0, 0), (1, 1, 1), (3, 3, 3), (2, 2, 0), (0, 0, 3), (0, 1, 1),
+    (1, 0, 0), (2, 3, 1)])
+def test_hash_threshold_entry_takes_outputs_at_an_offset(
+        cuda_device, ids_lead, h_lead, k_lead):
+    """The C entry with ids and outputs that are views 0-3 words into
+    their buffers (the wrapper allocates its own outputs, so this calls the
+    entry): the vector body where all three sit at one offset from a 16-B
+    boundary, the scalar body where they do not. Equal to the plain
+    version, and nothing is written outside the views."""
+    n, tau, fill = 1_027, 2**31, 0x5A5A5A5A
+    ids32, ids64 = _b2_ids(n, ids_lead, cuda_device)
+    h_want, keep_want = ref.hash_threshold_ref(ids64, 9, tau)
+    lib = library.library()
+    card = ids32.device.index
+    for form in ("hashes", "keep"):
+        hbuf = torch.full((n + 8,), fill, dtype=torch.int32,
+                          device=cuda_device)
+        kbuf = torch.full_like(hbuf, fill)
+        h, k = hbuf[h_lead:h_lead + n], kbuf[k_lead:k_lead + n]
+        library.check(lib.hash_threshold_launch(
+            ids32.data_ptr(), h.data_ptr(),
+            k.data_ptr() if form == "keep" else None, n, seed_offset(9), tau,
+            card, library.current_stream_ptr(card)), "hash_threshold_launch")
+        torch.cuda.synchronize()
+        assert torch.equal(as_u64(h), h_want)
+        assert ((hbuf[:h_lead] == fill).all()
+                and (hbuf[h_lead + n:] == fill).all())
+        if form == "keep":
+            assert torch.equal(k.bool(), keep_want)
+            assert ((kbuf[:k_lead] == fill).all()
+                    and (kbuf[k_lead + n:] == fill).all())
+        else:
+            assert (kbuf == fill).all()
+
+
+def test_hash_threshold_kernel_past_2_31_ids(cuda_device):
+    """2^31 + 7 ids: the C entry launches in chunks of 2^30 ids and takes
+    any length, as the reference does. Hashes and keep flags equal the plain
+    version's on every id (compared in pieces of 2^24); the hashes-only
+    form around each chunk boundary and at both ends."""
+    n, tau = 2**31 + 7, 2**31 + 12_345
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    if free < 28 * 2**30:
+        pytest.skip(f"needs 28 GB free on the card, has {free / 2**30:.1f}")
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    ids = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                        device=cuda_device, generator=gen)
+    h, keep = hash_threshold(ids, 9, tau)
+    step = 2**24
+    for s in range(0, n, step):
+        hw, kw = ref.hash_threshold_ref(ids[s:s + step], 9, tau)
+        assert torch.equal(as_u64(h[s:s + step]), hw), s
+        assert torch.equal(keep[s:s + step].bool(), kw), s
+    del h, keep
+    h, keep = hash_threshold(ids, 9)
+    assert keep is None
+    for s in (0, 2**30 - 64, 2**31 - 64, n - 64):
+        assert torch.equal(as_u64(h[s:s + 128]),
+                           ref.hash_threshold_ref(ids[s:s + 128], 9, None)[0])
 
 
 @pytest.mark.parametrize("seed,m,c,gq,cq,w,hi,full,thr", [

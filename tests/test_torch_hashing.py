@@ -72,6 +72,26 @@ def test_hash_threshold_hashes_only_matches_jax_oracle():
     np.testing.assert_array_equal(hashing.to_numpy(h), np.asarray(h_want))
 
 
+@pytest.mark.parametrize("tau", [None, 2**31])
+@pytest.mark.parametrize("lead", [1, 2, 3])
+def test_hash_threshold_plain_matches_jax_oracle_on_slices(lead, tau):
+    """A stream sliced 1-3 words in (as the card's scalar body takes it),
+    at lengths that are not all multiples of four, in both forms."""
+    ids = _ids(6, 500)
+    ids32 = (ids.astype(np.uint64) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    t = hashing.to_tensor(ids32)[lead:]
+    assert t.is_contiguous() and t.storage_offset() == lead
+    h_want, keep_want = jax_hash_threshold(jnp.asarray(ids32[lead:]), 5,
+                                           0 if tau is None else tau)
+    h, keep = hash_threshold(t, 5, tau)
+    np.testing.assert_array_equal(hashing.to_numpy(h), np.asarray(h_want))
+    if tau is None:
+        assert keep is None
+    else:
+        np.testing.assert_array_equal(keep.numpy().astype(bool),
+                                      np.asarray(keep_want))
+
+
 def test_hash_threshold_rejects_bad_input():
     with pytest.raises(ValueError):
         hash_threshold(torch.zeros(4, dtype=torch.int64), 0, 5)
