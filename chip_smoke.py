@@ -34,6 +34,22 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            and 16 top-10s, equal to the dense and device routes; its stages,
            and per top-10 its B5 launches (one to four growing prefixes of
            the bound-ordered list) and n, its threshold-0 candidates
+  gkmv     the G-KMV engine at the same records and budget (the whole
+           budget in the KMV tail, no buffer words): the core build on the
+           card and on the host in both τ modes, bit-identical; 8 batches
+           at each t on the dense route (B1 at W = 0) and the forced
+           device pruned route (B3, B4 on long posting lists and dense
+           blocks), one plan="auto" batch, 8 top-10s on both; the host
+           route (B5) on 2 batches at t = 0.7 and 4 top-10s; every route's
+           hits and top-10 orders equal, 2 batches also against the numpy
+           route over all records; the postings encoded on the card equal
+           the host's; capacity, tail keys, blocks, dense blocks, longest
+           posting list, p50/p99 per route, B5's launches and n per top-10
+  kmv      the plain-KMV engine (k = max(budget // m, 2)): the api's device
+           build (the row_cap route, B2 hashes only) bit-identical to the
+           host build; 8 batches at t ∈ {0.5, 0.9} on the dense and pruned
+           (host) routes and 8 top-10s on both, kmv's estimator as torch
+           ops on the card, all equal to the numpy backend's
   lm       LM serving (``repro_torch.launch.serve``'s functions): qwen3-0.6b
            at full width, weights drawn from --seed on the card in bf16,
            prefill of 4 × 4,096 tokens (causal attention by the B6 kernel)
@@ -53,7 +69,9 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            16-B alignment and at lengths 5, 257 and n - 1, with its bare
            time in both forms, registers and SASS; B1 also at Gq = 1, 3
            and 17 through ops.score_index and with record and query thresholds below the global τ, at
-           NETFLIX's M; B5 and B1's entries also at the first top-10's whole
+           NETFLIX's M, and at W = 0 on the gkmv index; B3 and B4 also on
+           the gkmv tail; B5 also at the gkmv host route's pairs; B5 and
+           B1's entries also at the first top-10's whole
            bound-ordered list, and on B5's own edges: c % 4 != 0, W = 0,
            W = 9, P = 1, P not a multiple of its CTA's pairs, unaligned
            rows, and query rows of 1,024 values; B3's pos, hit and block-task prefix also past one CTA
@@ -73,10 +91,11 @@ benchmarks/bench_planner.py). Each phase prints one JSON line:
            instructions in the tensor-core body's SASS
   kernels  per kernel: launches on the main paths, error, times, bound
 
-Four main paths are counted: the dense path (build, query, save), the
+Eight main paths are counted: the dense path (build, query, save), the
 device pruned path (the pruned phase's api calls), the host pruned path
-(the host_pruned phase's planner calls) and the LM path (prefill and
-decode). The launch counts are set to 0
+(the host_pruned phase's planner calls), the gkmv phase's three (build
+and dense, device pruned, host) and the kmv phase's, and the LM path
+(prefill and decode). The launch counts are set to 0
 just before each and read just after. The checks and stage-by-stage
 re-runs come after that read, and the parity phase's launches do not
 count either. Any failed check raises, so the script exits non-zero and
@@ -88,11 +107,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -105,7 +126,7 @@ import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch import api  # noqa: E402
-from repro_torch.core import gbkmv  # noqa: E402
+from repro_torch.core import gbkmv, gkmv, kmv  # noqa: E402
 from repro_torch.core.arena import DevicePostings  # noqa: E402
 from repro_torch.core.estimators import (  # noqa: E402
     containment_matrix, gbkmv_containment_np)
@@ -130,7 +151,8 @@ from repro_torch.kernels.postings_merge import (  # noqa: E402
 from repro_torch.planner import (  # noqa: E402
     PostingsIndex, candidates_for, choose_plan, encode_store,
     f32_threshold, mask_to_hits, postings_equal, pruned_batch, pruned_topk,
-    topk_candidates, topk_select)
+    threshold_hits_packed, topk_candidates, topk_select)
+from repro_torch.planner.postings import build_postings_device  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -215,13 +237,36 @@ KERNELS = {
 PATH_KERNELS = {"dense": ("hash_threshold", "gbkmv_score"),
                 "pruned": ("postings_probe", "block_decode"),
                 "host_pruned": ("gather_score",),
+                "gkmv_dense": ("hash_threshold", "gbkmv_score"),
+                "gkmv_pruned": ("postings_probe", "block_decode"),
+                "gkmv_host": ("gather_score",),
+                "kmv": ("hash_threshold",),
                 "lm": ("flash_attention",)}
+# And the kernels a path must not launch: the dense and device routes
+# verify no pairs, the host routes run no device pipeline, and kmv scores
+# with its own estimator (torch ops).
+PATH_NOT_LAUNCHED = (("dense", "gather_score"), ("pruned", "gather_score"),
+                     ("host_pruned", "postings_probe"),
+                     ("host_pruned", "block_decode"),
+                     ("gkmv_dense", "gather_score"),
+                     ("gkmv_pruned", "gather_score"),
+                     ("gkmv_host", "postings_probe"),
+                     ("gkmv_host", "block_decode"),
+                     ("kmv", "postings_probe"), ("kmv", "block_decode"),
+                     ("kmv", "gather_score"))
 COUNTERS = {"hash_threshold": hash_threshold, "gbkmv_score": gbkmv_score,
             "gather_score": gather_score, "postings_probe": postings_probe,
             "block_decode": block_decode, "flash_attention": flash_attention}
 
 
+# The script's start on the host clock; every phase line carries the
+# seconds since (``elapsed_s``).
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -519,27 +564,32 @@ def phase_build(batch: RaggedBatch, budget: int, hp: SimpleNamespace,
 
 
 def numpy_scores(index, queries) -> np.ndarray:
-    """The host numpy route: the reference's estimator over all records."""
-    cols = SimpleNamespace(**_host_columns(index.core.sketches))
-    qp = gbkmv.sketch_query_batch(index.core, queries)
+    """The host numpy route of a gbkmv or gkmv index: the reference's
+    estimator over all records on host columns, a query a thread (numpy
+    lets go of the GIL in its array operations)."""
+    cols = SimpleNamespace(**_host_columns(index._sketch_pack()))
+    qp = index._query_pack(queries)
     qv, qt, qb = to_numpy(qp.values), to_numpy(qp.thresh), to_numpy(qp.buf)
     qs = qp.sizes.numpy()
-    return np.stack([gbkmv_containment_np(qv[g], qt[g], qb[g], qs[g], cols)
-                     for g in range(len(queries))], axis=-1)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        parts = pool.map(lambda g: gbkmv_containment_np(qv[g], qt[g], qb[g],
+                                                        qs[g], cols),
+                         range(len(queries)))
+        return np.stack(list(parts), axis=-1)
 
 
 def query_breakdown(index, batches, t) -> dict:
     """Median host-clock ms of each layer a dense batch passes through,
     called as ``batch_query`` calls them, with a sync after the device
-    work; and the same split for top-k (scores, then the host head)."""
-    x = index.core.sketches.device_pack(index.device)
-    thr = torch.tensor([float(f32_threshold(t))], device=x.device)
+    work; and the same split for top-k (scores, then the host head).
+    Any engine: its own query sketch and score matrix."""
+    thr = torch.tensor([float(f32_threshold(t))], device=index.device)
     rows = []
     for b in batches:
         t0 = time.perf_counter()
-        qp = gbkmv.sketch_query_batch(index.core, b)
+        qp = index._query_pack(b)
         t1 = time.perf_counter()
-        s = containment_matrix(qp, x, as_numpy=False)
+        s = index._score_matrix(b, as_numpy=False, qp=qp)
         sync()
         t2 = time.perf_counter()
         mask = (s >= thr[None, :]).cpu().numpy()
@@ -731,7 +781,7 @@ def device_stages(index, b, t):
     host clock for unpacking the words and ``mask_to_hits``. Returns
     (ms per stage, host ms of the query sketch and of the planner probe,
     hits)."""
-    arena = index.core.sketches
+    arena = index._sketch_pack()
     m = arena.num_records
     t0 = time.perf_counter()
     qp, hash_rows, bit_rows, _ = index._plan_queries(b)
@@ -888,25 +938,27 @@ def check_pruned(index, batches, run, hits_seen, topk_seen) -> dict:
     return out
 
 
-def phase_host_pruned(index, batches, topk_queries) -> dict:
+def phase_host_pruned(index, batches, topk_queries,
+                      thresholds=THRESHOLDS) -> dict:
     """The planner's host route, driven directly as ``ShardedIndex`` drives
     it off its device route: ``planner.pruned_batch``/``pruned_topk``
     with ``index._pair_score_fn(qp)``, whose verify is B5 (in growing
-    prefixes of each top-10's bound-ordered list)."""
+    prefixes of each top-10's bound-ordered list), on ``batches`` at each
+    of ``thresholds`` and a top-10 of each of ``topk_queries``."""
     post = index._postings()
     m = index.num_records
     run = {"forced": [], "topk": []}
-    for i in range(CHECK_BATCHES):
-        qp, hash_rows, bit_rows, sizes = index._plan_queries(batches[i])
+    for i, b in enumerate(batches):
+        qp, hash_rows, bit_rows, sizes = index._plan_queries(b)
         score_fn = index._pair_score_fn(qp)
-        for t in THRESHOLDS:
+        for t in thresholds:
             t0 = time.perf_counter()
             ids, cands = pruned_batch(post, hash_rows, bit_rows, sizes, t,
                                       score_fn)
             ms = (time.perf_counter() - t0) * 1e3
             run["forced"].append((i, t, ids, ms,
                                   int(sum(len(c.rec_ids) for c in cands))))
-    for q in topk_queries[:GQ]:
+    for q in topk_queries:
         qp, hash_rows, bit_rows, sizes = index._plan_queries([q])
         before = gather_score.launches
         t0 = time.perf_counter()
@@ -1022,6 +1074,419 @@ def check_host_pruned(index, batches, run, dev_run, hits_seen, topk_seen,
                    "n_p50": pctl(ns, 50),
                    "equals_dense_and_device": True}})
     return cand_list, topk_list
+
+
+# ---------------------------------------------------------------------------
+# The gkmv and kmv engines at the NETFLIX deployment
+# ---------------------------------------------------------------------------
+
+# Their traffic: the first batches of the gbkmv phases' workload (seed 2)
+# and a top-10 of each query of the first half of batch 0. The gkmv host
+# route walks posting lists of ~10^5 entries a frequent query hash, so it
+# takes two batches at one t and four top-10s. The numpy routes over all
+# records (the host estimator for gkmv, kmv's estimator on the CPU) take
+# 0.1-1 s a query on the card machine's host, so they check two batches.
+SKETCH_BATCHES = 8
+SKETCH_TOPK = 8
+GKMV_HOST_BATCHES = 2
+GKMV_HOST_TOPK = 4
+GKMV_HOST_T = 0.7
+NUMPY_BATCHES = 2
+KMV_THRESHOLDS = (0.5, 0.9)
+# B5's long-row case: the gkmv records with the most live values.
+LONG_ROWS = 16_384
+
+
+def _ms_since(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _all_equal(got, want) -> bool:
+    return len(got) == len(want) and all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def _same_topk(a, b) -> bool:
+    return np.array_equal(a[0], b[0]) and np.array_equal(
+        np.asarray(a[1]).view(np.uint32), np.asarray(b[1]).view(np.uint32))
+
+
+def _latency(ms: list) -> dict:
+    return {"batches": len(ms), "ms_p50": pctl(ms, 50), "ms_p90": pctl(ms, 90),
+            "ms_p99": pctl(ms, 99)}
+
+
+def _timed_batches(index, batches, thresholds, plan: str):
+    """{(i, t): hits} and the batch latencies of ``batch_query`` on each
+    batch at each t (one warm-up batch first)."""
+    index.batch_query(batches[0], thresholds[0], plan=plan)
+    sync()
+    hits, ms = {}, []
+    for t in thresholds:
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            hits[(i, t)] = index.batch_query(b, t, plan=plan)
+            ms.append(_ms_since(t0))
+    return hits, ms
+
+
+def _timed_topk(index, queries, plan: str):
+    out, ms = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        out.append(index.topk(q, TOPK, plan=plan))
+        ms.append(_ms_since(t0))
+    return out, ms
+
+
+def postings_shape(post) -> dict:
+    """The tail store's size: keys, blocks, the dense ones, the longest
+    posting list and how many lists pass one block."""
+    lens = post.tail_row_lengths().astype(np.int64)
+    dense = (np.asarray(post.tail.meta, np.uint32) >> np.uint32(13)) & 1
+    return {"tail_keys": len(post.keys), "tail_entries": int(post.tail.nnz),
+            "tail_blocks": int(post.tail.num_blocks),
+            "dense_blocks": int(dense.sum()),
+            "longest_list": int(lens.max()) if len(lens) else 0,
+            "lists_over_one_block": int((lens > 128).sum()),
+            "bytes": post.nbytes()}
+
+
+def gkmv_dense(batch: RaggedBatch, budget: int, batches, topk_queries
+               ) -> dict:
+    """The gkmv engine's build and dense route (the ``gkmv_dense`` path):
+    the core build on the card and on the host in both τ modes (their
+    columns kept as numpy for :func:`check_gkmv`), the api's device build
+    (exact τ), and the dense route at each t and for each top-10."""
+    run = {"builds": {}, "budget": budget}
+    for mode in TAU_MODES:
+        t0 = time.perf_counter()
+        dev = gkmv.build_gkmv(batch, budget, tau_mode=mode, device=DEV)
+        sync()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = gkmv.build_gkmv(batch, budget, tau_mode=mode,
+                               build_backend="numpy", device="cpu")
+        host_s = time.perf_counter() - t0
+        run["builds"][mode] = {"device": _host_columns(dev),
+                               "host": _host_columns(host),
+                               "on_card": dev.device.type == DEV.type,
+                               "device_build_s": dev_s,
+                               "host_build_s": host_s}
+        del dev, host
+    t0 = time.perf_counter()
+    index = api.build("gkmv", batch, budget)
+    sync()
+    run["api_build_s"] = time.perf_counter() - t0
+    run["index"] = index
+    run["hits"], run["ms"] = _timed_batches(index, batches, THRESHOLDS,
+                                            "dense")
+    run["topk"], run["topk_ms"] = _timed_topk(index, topk_queries, "dense")
+    return run
+
+
+def gkmv_pruned(index, batches, topk_queries) -> dict:
+    """The gkmv engine's device pruned route (the ``gkmv_pruned`` path):
+    the postings built on the host and encoded on the card, one
+    plan="auto" batch, forced plan="pruned" on every batch at each t, and
+    the pruned top-10s."""
+    t0 = time.perf_counter()
+    post = index._postings()
+    run = {"post": post, "lazy_build_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    run["encoded"] = build_postings_device(index.sketches.device_pack(DEV))
+    sync()
+    run["device_encode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run["auto_hits"] = index.batch_query(batches[0], GKMV_HOST_T)
+    run["auto_ms"] = _ms_since(t0)
+    run["auto_plan"] = index.last_plan
+    run["hits"], run["ms"] = _timed_batches(index, batches, THRESHOLDS,
+                                            "pruned")
+    run["device_route"] = (index.last_plan.path == "pruned"
+                           and index.last_candidate_sizes is None)
+    run["topk"], run["topk_ms"] = _timed_topk(index, topk_queries, "pruned")
+    return run
+
+
+def candidate_list(index, b, t):
+    """(cand_rec, cand_q) int32 of one batch on the host route at t."""
+    post = index._postings()
+    _, hash_rows, bit_rows, sizes = index._plan_queries(b)
+    cands = [candidates_for(post, qh, qb, t, int(qs))
+             for qh, qb, qs in zip(hash_rows, bit_rows, sizes)]
+    lens = [len(c.rec_ids) for c in cands]
+    return (np.concatenate([c.rec_ids for c in cands]).astype(np.int32),
+            np.repeat(np.arange(len(b), dtype=np.int32), lens))
+
+
+def host_route_split(index, b, t) -> dict:
+    """Host-clock ms of each step of one batch on the host route, as
+    ``planner.pruned_batch`` runs it with the index's own scorer: the
+    query sketch, candidate generation, the scorer's call (upload, score,
+    fetch) and the cut; any engine."""
+    post = index._postings()
+    t0 = time.perf_counter()
+    qp, hash_rows, bit_rows, sizes = index._plan_queries(b)
+    t1 = time.perf_counter()
+    cands = [candidates_for(post, qh, qb, t, int(qs))
+             for qh, qb, qs in zip(hash_rows, bit_rows, sizes)]
+    lens = [len(c.rec_ids) for c in cands]
+    cand_rec = np.concatenate([c.rec_ids for c in cands]).astype(np.int32)
+    cand_q = np.repeat(np.arange(len(b), dtype=np.int32), lens)
+    t2 = time.perf_counter()
+    scores = index._pair_score_fn(qp)(cand_rec, cand_q)
+    t3 = time.perf_counter()
+    thr32, pos = f32_threshold(t), 0
+    for c, n in zip(cands, lens):
+        c.rec_ids[scores[pos:pos + n] >= thr32]
+        pos += n
+    t4 = time.perf_counter()
+    ms = np.diff([t0, t1, t2, t3, t4]) * 1e3
+    return {"threshold": t, "pairs": len(cand_rec),
+            **dict(zip(("sketch_ms", "candidates_ms", "score_ms", "cut_ms"),
+                       ms.tolist()))}
+
+
+def median_device_stages(index, batches) -> dict:
+    """:func:`device_stages` of each batch at each t, medians; each
+    batch's hits held to the api's device route."""
+    rows = []
+    for b in batches:
+        for t in THRESHOLDS:
+            stages, host, hits = device_stages(index, b, t)
+            require(_all_equal(hits, index.batch_query(b, t, plan="pruned")),
+                    f"staged {index.engine} device batch at t={t} equals "
+                    "the route")
+            rows.append({**host, **stages})
+    return {"batches": len(rows),
+            **{k: float(np.median([r[k] for r in rows])) for k in rows[0]}}
+
+
+def check_gkmv(dense: dict, pruned: dict, host: dict, batches,
+               topk_queries, seconds: dict) -> dict:
+    """Hold the gkmv phase's runs to one another and to the host builds
+    and the numpy route; emit its line. Returns the parity phase's inputs:
+    the index and the host route's candidate pairs of batch 0."""
+    t_check = time.perf_counter()
+    index = dense["index"]
+    m = index.num_records
+    out = {"phase": "gkmv", "records": m, "budget": dense["budget"],
+           "builds": {}}
+    for mode, b in dense["builds"].items():
+        dcols, hcols = b["device"], b["host"]
+        require(b["on_card"], f"gkmv {mode} device build on the card")
+        for name in dcols:
+            require(dcols[name].shape == hcols[name].shape
+                    and np.array_equal(dcols[name], hcols[name]),
+                    f"gkmv {mode} device build column {name} equals host")
+        lengths = dcols["lengths"]
+        out["builds"][mode] = {
+            "tau": int(dcols["thresh"].max()), "capacity":
+            dcols["values"].shape[1],
+            "mean_length": float(lengths.mean()),
+            "longest_row": int(lengths.max()),
+            "empty_rows": int((lengths == 0).sum()),
+            "device_build_s": b["device_build_s"],
+            "host_build_s": b["host_build_s"],
+            "identical_to_host_build": True}
+    s = index.sketches
+    exact = dense["builds"]["exact"]["device"]
+    require(int(index.tau) == int(exact["thresh"].max())
+            and all(np.array_equal(a, b) for a, b in
+                    zip(_host_columns(s).values(), exact.values())),
+            "the api's gkmv index is the exact-mode build")
+    out.update({"tau": int(index.tau), "tau_share": int(index.tau) / 2**32,
+                "capacity": s.capacity, "buf_words": s.buf_words,
+                "column_bytes": int(exact["values"].nbytes),
+                "api_build_s": dense["api_build_s"]})
+
+    post = pruned["post"]
+    e_post, e_dev = pruned["encoded"]
+    require(postings_equal(e_post, post),
+            "gkmv device-encoded postings equal the host postings")
+    mirror = DevicePostings.from_postings(post, DEV)
+    require(all(torch.equal(a, b) for a, b in
+                zip(e_dev.arrays(), mirror.arrays()))
+            and e_dev.has_dense == mirror.has_dense,
+            "gkmv device-encoded mirror equals the host postings' mirror")
+    out["postings"] = {**postings_shape(post),
+                       "lazy_build_s": pruned["lazy_build_s"],
+                       "device_encode_s": pruned["device_encode_s"],
+                       "device_encoded_equal": True}
+
+    # Dense hits and top-10s against the numpy host route over all records.
+    for i in range(NUMPY_BATCHES):
+        s_np = numpy_scores(index, batches[i])
+        require(s_np.shape == (m, GQ) and np.isfinite(s_np).all(),
+                "gkmv numpy route scores finite")
+        for t in THRESHOLDS:
+            want = [np.nonzero(s_np[:, g].astype(np.float64) >= t)[0]
+                    for g in range(GQ)]
+            require(_all_equal(dense["hits"][(i, t)], want),
+                    f"gkmv dense hits of batch {i} at t={t} equal numpy")
+        if i == 0:
+            for g, got in enumerate(dense["topk"]):
+                require(_same_topk(got, topk_select(np.arange(m), s_np[:, g],
+                                                    TOPK, m)),
+                        f"gkmv dense top-{TOPK} of query {g} equals numpy")
+    # Every route against the dense route.
+    for key, hits in pruned["hits"].items():
+        require(_all_equal(hits, dense["hits"][key]),
+                f"gkmv device-route hits {key} equal dense")
+    require(pruned["device_route"], "gkmv forced pruned takes the device route")
+    require(_all_equal(pruned["auto_hits"],
+                       dense["hits"][(0, GKMV_HOST_T)]),
+            "gkmv plan='auto' hits equal dense")
+    for i, t, got, _, _ in host["forced"]:
+        require(_all_equal(got, dense["hits"][(i, t)]),
+                f"gkmv host-route hits of batch {i} at t={t} equal dense")
+    for a, b in zip(pruned["topk"], dense["topk"]):
+        require(_same_topk(a, b), f"gkmv device pruned top-{TOPK} equals dense")
+    for (ids, sc, _, _), b in zip(host["topk"], dense["topk"]):
+        require(_same_topk((ids, sc), b),
+                f"gkmv host pruned top-{TOPK} equals dense")
+
+    # The device pipeline's raw scores of batch 0 against B1's matrix.
+    qp = index._query_pack(batches[0])
+    staged = planner_device.stage_query_inputs(s, qp, device=DEV)
+    dev_s = planner_device.pruned_scores(*staged)
+    dense_s = containment_matrix(qp, s.device_pack(DEV), as_numpy=False)
+    require(torch.equal(dev_s.view(torch.int32), dense_s.view(torch.int32)),
+            "gkmv device-route scores of batch 0 equal B1's dense matrix")
+
+    ns = []
+    for q in topk_queries[:GKMV_HOST_TOPK]:
+        _, hash_rows, bit_rows, sizes = index._plan_queries([q])
+        ranked, _ = topk_candidates(post, hash_rows[0], bit_rows[0],
+                                    int(sizes[0]))
+        ns.append(len(ranked))
+    b5 = [r[3] for r in host["topk"]]
+    require(all(n == 0 or 1 <= b <= 4 for n, b in zip(ns, b5)),
+            f"each gkmv host-route top-{TOPK} launches B5 one to four times")
+    lp = pruned["auto_plan"]
+    breakdown = {"dense": query_breakdown(index, batches, GKMV_HOST_T),
+                 "device_pruned": median_device_stages(
+                     index, batches[:NUMPY_BATCHES]),
+                 "host_pruned": host_route_split(index, batches[0],
+                                                 GKMV_HOST_T)}
+    out.update({
+        "queries": {"batches": SKETCH_BATCHES, "gq": GQ,
+                    "thresholds": list(THRESHOLDS),
+                    "query_hashes_batch0": int(qp.lengths.sum()),
+                    "numpy_checked_batches": NUMPY_BATCHES},
+        "dense": {**_latency(dense["ms"]),
+                  "topk_ms_p50": pctl(dense["topk_ms"], 50),
+                  "topk_ms_p99": pctl(dense["topk_ms"], 99),
+                  "equals_numpy": True},
+        "device_pruned": {**_latency(pruned["ms"]),
+                          "topk_ms_p50": pctl(pruned["topk_ms"], 50),
+                          "topk_ms_p99": pctl(pruned["topk_ms"], 99),
+                          "scores_equal_b1": True, "equals_dense": True},
+        "auto": {"threshold": GKMV_HOST_T, "path": lp.path, "hits": lp.hits,
+                 "tail_blocks": lp.tail_blocks,
+                 "tail_dense_blocks": lp.tail_dense_blocks,
+                 "est_dense": lp.est_dense, "est_pruned": lp.est_pruned,
+                 "ms": pruned["auto_ms"], "equals_dense": True},
+        "host_pruned": {
+            "threshold": GKMV_HOST_T,
+            **_latency([r[3] for r in host["forced"]]),
+            "candidates": [r[4] for r in host["forced"]],
+            "topk_ms": [r[2] for r in host["topk"]],
+            "topk_b5_launches": b5, "topk_n": ns, "equals_dense": True},
+        "topk_queries": len(topk_queries), "breakdown": breakdown,
+        "seconds": {**seconds, "check_s": time.perf_counter() - t_check}})
+    emit(out)
+    return index, candidate_list(index, batches[0], GKMV_HOST_T)
+
+
+def kmv_run(batch: RaggedBatch, budget: int, batches, topk_queries) -> dict:
+    """The kmv engine (the ``kmv`` path): the api's device build (the
+    row_cap route, B2 hashes only), the host build, the dense route and
+    the pruned route (the host filter-and-verify with kmv's own pair
+    scorer on the card) at each t, and the top-10s on both."""
+    t0 = time.perf_counter()
+    index = api.build("kmv", batch, budget)
+    sync()
+    run = {"index": index, "api_build_s": time.perf_counter() - t0,
+           "on_card": index.sketches.device.type == DEV.type}
+    t0 = time.perf_counter()
+    run["host"] = kmv.build_kmv(batch, budget, build_backend="numpy",
+                                device="cpu")
+    run["host_build_s"] = time.perf_counter() - t0
+    run["dense"], run["dense_ms"] = _timed_batches(
+        index, batches, KMV_THRESHOLDS, "dense")
+    run["pruned"], run["pruned_ms"] = _timed_batches(
+        index, batches, KMV_THRESHOLDS, "pruned")
+    run["host_route"] = (index.last_plan.path == "pruned"
+                         and index.last_candidate_sizes is not None)
+    run["candidates"] = int(sum(index.last_candidate_sizes))
+    run["topk_dense"], run["topk_dense_ms"] = _timed_topk(
+        index, topk_queries, "dense")
+    run["topk_pruned"], run["topk_pruned_ms"] = _timed_topk(
+        index, topk_queries, "pruned")
+    return run
+
+
+def check_kmv(run: dict, batches, topk_queries, run_s: float) -> None:
+    """The kmv runs against the host build and the numpy backend (kmv's
+    estimator on the CPU over the host build's columns); emit its line."""
+    t_check = time.perf_counter()
+    index, host = run["index"], run["host"]
+    m = index.num_records
+    require(run["on_card"], "kmv device build on the card")
+    dcols, hcols = _host_columns(index.sketches), _host_columns(host)
+    for name in dcols:
+        require(dcols[name].shape == hcols[name].shape
+                and np.array_equal(dcols[name], hcols[name]),
+                f"kmv device build column {name} equals host")
+    require(run["host_route"], "kmv forced pruned takes the host route")
+    for key, hits in run["pruned"].items():
+        require(_all_equal(hits, run["dense"][key]),
+                f"kmv pruned hits {key} equal dense")
+    for g, (a, b) in enumerate(zip(run["topk_dense"], run["topk_pruned"])):
+        require(_same_topk(a, b),
+                f"kmv pruned top-{TOPK} of query {g} equals dense")
+    cpu = api.get_engine("kmv").wrap(host, backend="numpy", device="cpu")
+    for i, b in enumerate(batches[:NUMPY_BATCHES]):
+        s_np = cpu.batch_scores(b)
+        require(s_np.shape == (m, GQ) and np.isfinite(s_np).all(),
+                "kmv numpy scores finite")
+        for t in KMV_THRESHOLDS:
+            require(_all_equal(run["dense"][(i, t)],
+                               threshold_hits_packed(s_np, t)),
+                    f"kmv dense hits of batch {i} at t={t} equal numpy")
+        if i == 0:
+            for g, (a, b) in enumerate(zip(run["topk_dense"],
+                                           run["topk_pruned"])):
+                want = topk_select(np.arange(m), s_np[:, g], TOPK, m)
+                require(_same_topk(a, want) and _same_topk(b, want),
+                        f"kmv top-{TOPK} of query {g}, dense and pruned, "
+                        "equal numpy")
+    lengths = dcols["lengths"]
+    breakdown = {"dense": query_breakdown(index, batches[:NUMPY_BATCHES],
+                                          KMV_THRESHOLDS[0]),
+                 "host_pruned": host_route_split(index, batches[0],
+                                                 KMV_THRESHOLDS[0])}
+    emit({"phase": "kmv", "records": m, "k": int(lengths.max()),
+          "capacity": index.sketches.capacity,
+          "mean_length": float(lengths.mean()),
+          "column_bytes": int(dcols["values"].nbytes),
+          "api_build_s": run["api_build_s"],
+          "host_build_s": run["host_build_s"],
+          "identical_to_host_build": True,
+          "postings": postings_shape(index._postings()),
+          "thresholds": list(KMV_THRESHOLDS),
+          "dense": {**_latency(run["dense_ms"]),
+                    "topk_ms_p50": pctl(run["topk_dense_ms"], 50)},
+          "host_pruned": {**_latency(run["pruned_ms"]),
+                          "candidates_last_batch": run["candidates"],
+                          "topk_ms_p50": pctl(run["topk_pruned_ms"], 50)},
+          "topk_queries": len(topk_queries), "pruned_equals_dense": True,
+          "numpy_checked_batches": NUMPY_BATCHES, "equals_numpy": True,
+          "breakdown": breakdown,
+          "seconds": {"run_s": run_s,
+                      "check_s": time.perf_counter() - t_check}})
 
 
 def _edge_score_inputs():
@@ -1238,8 +1703,174 @@ def _dense_store_check() -> dict:
             "dense_tasks": dense_tasks, "equal": True}
 
 
+def parity_gkmv(index, query_batch, pairs) -> dict:
+    """B1, B3, B4 and B5 on the gkmv index against their plain versions on
+    the card, exact equality, with their wrapper and bare times: B1 at
+    buffer width 0 on batch 0, B3 and B4 on its tail store (long posting
+    lists, dense blocks) at batch 0's query hashes, B5 on the host route's
+    pairs of batch 0 at t = 0.7 (rows of up to the capacity's live values).
+    Returns one entry per kernel."""
+    lib = library.library()
+    x = index.sketches.device_pack(DEV)
+    qp = index._query_pack(query_batch).to(DEV)
+    args = (x.values, x.thresh, x.buf, qp.values, qp.thresh, qp.buf, qp.sizes)
+    m, c = x.values.shape
+    gq, cq = qp.values.shape
+    require(x.buf.shape == (m, 0) and qp.buf.shape == (gq, 0),
+            "the gkmv index and its queries have no buffer words")
+    got = gbkmv_score(*args)
+    want = ref.gbkmv_score_ref(*args)
+    sync()
+    require(torch.equal(got, want) and torch.equal(score_index(*args), want),
+            "gbkmv_score kernel equals plain version at W = 0 (gkmv)")
+    out_b1 = torch.empty((m, gq), dtype=torch.float32, device=DEV)
+    xu = as_u64(x.values)
+    tau_pair = torch.minimum(as_u64(x.thresh)[:, None],
+                             as_u64(qp.thresh)[None, :])
+    live_x = sum(int((xu <= tau_pair[:, g:g + 1]).sum()) for g in range(gq))
+    out = {"gbkmv_score": {
+        "shape": [m, c, gq, cq, 0], "equal": True,
+        "ms": cuda_ms(lambda: gbkmv_score(*args), 20),
+        "kernel_graph_ms": graph_ms(lambda st: lib.gbkmv_score_launch(
+            x.values.data_ptr(), x.thresh.data_ptr(), x.buf.data_ptr(), m, c,
+            0, qp.values.data_ptr(), qp.thresh.data_ptr(), qp.buf.data_ptr(),
+            qp.sizes.data_ptr(), gq, cq, out_b1.data_ptr(), x.values.device.index,
+            st)),
+        "plain_ms": cuda_ms(lambda: ref.gbkmv_score_ref(*args), 3),
+        "live_x_per_pair": live_x / (m * gq),
+        "query_hashes": int(qp.lengths.sum())}}
+
+    # B3 and B4 on the gkmv tail store.
+    dpost = index.sketches.device_postings(DEV)
+    keys, rb = dpost.keys, dpost.row_blocks
+    q_flat = qp.values.reshape(-1)
+    pos, hit, cum = probe_tasks(keys, q_flat, rb)
+    shift = postings_probe.last_fence_shift
+    sync()
+    require(all(torch.equal(a, b) for a, b in zip(
+        (pos, hit, cum), ref.probe_tasks_ref(keys, q_flat, rb)))
+        and all(torch.equal(a, b) for a, b in zip(
+            postings_probe(keys, q_flat), ref.postings_probe_ref(keys,
+                                                                 q_flat))),
+        "probe kernels equal plain version on the gkmv tail")
+    n, u = q_flat.numel(), keys.numel()
+    p_o, h_o, c_o = (torch.empty_like(pos), torch.empty_like(hit),
+                     torch.empty_like(cum))
+    out["postings_probe"] = {
+        "shape": [n, u], "equal": True, "fence_shift": shift,
+        "hit_lanes": int(hit.sum()), "tasks": int(cum[-1]) if n else 0,
+        "ms": cuda_ms(lambda: probe_tasks(keys, q_flat, rb), 20),
+        "kernel_graph_ms": graph_ms(lambda st: lib.postings_probe_launch(
+            keys.data_ptr(), u, q_flat.data_ptr(), n, rb.data_ptr(),
+            p_o.data_ptr(), h_o.data_ptr(), c_o.data_ptr(), None,
+            keys.device.index, st)),
+        "plain_ms": cuda_ms(lambda: ref.probe_tasks_ref(keys, q_flat, rb), 5)}
+    blocks = (rb, dpost.first, dpost.meta, dpost.off, dpost.payload)
+    kw = {"gq": gq, "cq": cq, "m": m}
+    kargs = (pos, hit) + blocks
+    kc = block_decode(*kargs, cum=cum, **kw)
+    want = ref.kcount_ref(*kargs, **kw)
+    sync()
+    require(torch.equal(kc, want) and torch.equal(block_decode(*kargs, **kw),
+                                                  want),
+            "block_decode kernel equals plain version on the gkmv tail")
+    blk = _task_blocks(pos, hit, rb)
+    dense_tasks = int(((dpost.meta[blk] >> 13) & 1).sum())
+    kc_o = torch.empty_like(kc)
+
+    def bare_decode(zero_counts: int):
+        return lambda st: lib.block_decode_launch(
+            pos.data_ptr(), cum.data_ptr(), n, rb.data_ptr(),
+            dpost.first.data_ptr(), dpost.meta.data_ptr(),
+            dpost.off.data_ptr(), dpost.first.numel(),
+            dpost.payload.data_ptr(), dpost.payload.numel(), gq, cq, m,
+            kc_o.data_ptr(), zero_counts, keys.device.index, st)
+
+    words = int((dpost.off[blk + 1] - dpost.off[blk]).sum())
+    entries = int(((dpost.meta[blk] & 0x7F) + 1).sum())
+    body_bytes = (4 * words + 12 * int(blk.numel()) + 8 * n
+                  + 4 * int(hit.sum()) + 4 * entries)
+    out["block_decode"] = {
+        "shape": [n, int(blk.numel()), m, gq], "equal": True,
+        "store_has_dense": dpost.has_dense, "dense_tasks": dense_tasks,
+        "entries": entries, "payload_words": words,
+        "ms": cuda_ms(lambda: block_decode(*kargs, cum=cum, **kw), 20),
+        "kernel_graph_ms": graph_ms(bare_decode(1)),
+        "body_graph_ms": graph_ms(bare_decode(0)),
+        "body_bound_ms": body_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": (body_bytes + 4 * m * gq) / HBM_BYTES_PER_S * 1e3,
+        "plain_ms": cuda_ms(lambda: ref.kcount_ref(*kargs, **kw), 3)}
+
+    # B5 on the host route's pairs.
+    rec = torch.from_numpy(pairs[0]).to(DEV)
+    qq = torch.from_numpy(pairs[1]).to(DEV)
+    pargs = args + (rec, qq)
+    got = gather_score(*pargs)
+    sync()
+    require(torch.equal(got, ref.gather_score_ref(*pargs))
+            and torch.equal(got, gbkmv_score(*args)[rec.long(), qq.long()]),
+            "gather_score kernel equals plain version and B1 at the gkmv "
+            "host route's pairs")
+    p = rec.numel()
+    o_b5 = torch.empty(p, dtype=torch.float32, device=DEV)
+    tau_p = torch.minimum(as_u64(x.thresh[rec.long()]),
+                          as_u64(qp.thresh[qq.long()]))
+    nx = (as_u64(x.values[rec.long()]) <= tau_p[:, None]).sum(1)
+    nq = (as_u64(qp.values[qq.long()]) <= tau_p[:, None]).sum(1)
+    reads = torch.clamp_max(nx + 1, c)
+    start = rec.long() * (4 * c)
+    sectors = int(((start + 4 * reads - 1) // 32 - start // 32 + 1).sum())
+    b5_bytes = 32 * sectors + 4 * (p * 3 + gq * (cq + 2))
+    b5_ops = 2 * int((nx + nq).sum()) + 12 * p
+    out["gather_score"] = {
+        "shape": [p, m, c, gq, cq, 0], "equal": True,
+        "live_x_per_pair": float(nx.float().mean()) if p else 0.0,
+        "live_q_per_pair": float(nq.float().mean()) if p else 0.0,
+        "ms": cuda_ms(lambda: gather_score(*pargs), 20),
+        "kernel_graph_ms": graph_ms(lambda st: lib.gather_score_launch(
+            x.values.data_ptr(), x.thresh.data_ptr(), x.buf.data_ptr(), m, c,
+            0, qp.values.data_ptr(), qp.thresh.data_ptr(), qp.buf.data_ptr(),
+            qp.sizes.data_ptr(), gq, cq, rec.data_ptr(), qq.data_ptr(), p,
+            o_b5.data_ptr(), x.values.device.index, st)),
+        "plain_ms": cuda_ms(lambda: ref.gather_score_ref(*pargs), 3),
+        "bytes": b5_bytes, "ops": b5_ops,
+        "bound_ms": max(b5_bytes / HBM_BYTES_PER_S,
+                        b5_ops / ALU_OPS_PER_S) * 1e3}
+    # The host route's pairs hold few live values (most candidates share
+    # one frequent hash and keep one or two); B5 on long rows: the
+    # LONG_ROWS records with the most live values, each with every query.
+    long_rec = torch.sort(x.lengths.long(), descending=True,
+                          stable=True).indices[:LONG_ROWS]
+    lrec = long_rec.to(torch.int32).repeat_interleave(gq)
+    lq = torch.arange(gq, dtype=torch.int32, device=DEV).repeat(
+        long_rec.numel())
+    largs = args + (lrec, lq)
+    got = gather_score(*largs)
+    sync()
+    require(torch.equal(got, ref.gather_score_ref(*largs))
+            and torch.equal(got, gbkmv_score(*args)[lrec.long(), lq.long()]),
+            "gather_score kernel equals plain version and B1 on the gkmv "
+            "index's longest rows")
+    lp = lrec.numel()
+    o_long = torch.empty(lp, dtype=torch.float32, device=DEV)
+    lx = x.lengths[lrec.long()].long()
+    lbytes = 4 * int(torch.clamp_max(lx + 1, c).sum()) + 4 * lp * 3
+    out["gather_score"]["long_rows"] = {
+        "pairs": lp, "live_x_per_pair": float(lx.float().mean()),
+        "shortest_row": int(lx.min()),
+        "ms": cuda_ms(lambda: gather_score(*largs), 20),
+        "kernel_graph_ms": graph_ms(lambda st: lib.gather_score_launch(
+            x.values.data_ptr(), x.thresh.data_ptr(), x.buf.data_ptr(), m, c,
+            0, qp.values.data_ptr(), qp.thresh.data_ptr(), qp.buf.data_ptr(),
+            qp.sizes.data_ptr(), gq, cq, lrec.data_ptr(), lq.data_ptr(), lp,
+            o_long.data_ptr(), x.values.device.index, st)),
+        "bytes": lbytes,
+        "bound_ms": lbytes / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
 def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
-                 cand_q, topk_list) -> dict:
+                 cand_q, topk_list, gkmv_index, gkmv_pairs) -> dict:
     """Each kernel against its plain version on the same card tensors,
     exact equality; then their times at the main path's shapes."""
     results = {}
@@ -1619,6 +2250,9 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
         # five-step scan, the id and the atomic: about 16 operations.
         "ops": 16 * entries,
     }
+    for name, entry in parity_gkmv(gkmv_index, query_batch,
+                                   gkmv_pairs).items():
+        results[name]["gkmv"] = entry
     results["flash_attention"] = parity_flash()
     emit({"phase": "parity", **{k: {"shape": v["shape"],
                                     "parity": v["parity"],
@@ -1627,7 +2261,10 @@ def phase_parity(index, batch, tail_mask, query_batch, cand_rec,
           "flash_attention_edge_cases": results["flash_attention"][
               "edge_cases"],
           "gbkmv_score_load": {k: results["gbkmv_score"][k] for k in (
-              "live_x_per_pair", "row_values_read_per_record", "row_bytes")}})
+              "live_x_per_pair", "row_values_read_per_record", "row_bytes")},
+          "gkmv": {k: results[k]["gkmv"] for k in (
+              "gbkmv_score", "postings_probe", "block_decode",
+              "gather_score")}})
     return results
 
 def close(got, want, tol: float) -> tuple[float, bool]:
@@ -2103,10 +2740,42 @@ def main(argv=None) -> int:
     launches["pruned"] = read()
     check_pruned(index, batches, run, hits_seen, topk_seen)
     reset()
-    host_run = phase_host_pruned(index, batches, topk_queries)
+    host_run = phase_host_pruned(index, batches[:CHECK_BATCHES],
+                                 topk_queries[:GQ])
     launches["host_pruned"] = read()
     (cand_rec, cand_q), topk_list = check_host_pruned(
         index, batches, host_run, run, hits_seen, topk_seen, topk_queries)
+    # The gkmv and kmv engines at the same records and budget.
+    sketch_batches = batches[:SKETCH_BATCHES]
+    sketch_topk = batches[0][:SKETCH_TOPK]
+    seconds = {}
+    t0 = time.perf_counter()
+    reset()
+    g_dense = gkmv_dense(batch, budget, sketch_batches, sketch_topk)
+    launches["gkmv_dense"] = read()
+    seconds["dense_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset()
+    g_pruned = gkmv_pruned(g_dense["index"], sketch_batches, sketch_topk)
+    launches["gkmv_pruned"] = read()
+    seconds["pruned_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset()
+    g_host = phase_host_pruned(g_dense["index"],
+                               sketch_batches[:GKMV_HOST_BATCHES],
+                               sketch_topk[:GKMV_HOST_TOPK],
+                               thresholds=(GKMV_HOST_T,))
+    launches["gkmv_host"] = read()
+    seconds["host_s"] = time.perf_counter() - t0
+    gkmv_index, gkmv_pairs = check_gkmv(g_dense, g_pruned, g_host,
+                                        sketch_batches, sketch_topk, seconds)
+    del g_dense, g_pruned, g_host
+    t0 = time.perf_counter()
+    reset()
+    k_run = kmv_run(batch, budget, sketch_batches, sketch_topk)
+    launches["kmv"] = read()
+    check_kmv(k_run, sketch_batches, sketch_topk, time.perf_counter() - t0)
+    del k_run
     lm = lm_setup(args.seed)
     reset()
     lm["out"], lm["bodies"] = launched_bodies(lambda: serve.generate(
@@ -2119,14 +2788,12 @@ def main(argv=None) -> int:
         for name in names:
             require(launches[path][name] > 0,
                     f"{name} launched on the {path} path")
-    for path, name in (("dense", "gather_score"), ("pruned", "gather_score"),
-                       ("host_pruned", "postings_probe"),
-                       ("host_pruned", "block_decode")):
+    for path, name in PATH_NOT_LAUNCHED:
         require(launches[path][name] == 0,
                 f"{name} not launched on the {path} path")
 
     results = phase_parity(index, batch, tail_mask, batches[0], cand_rec,
-                           cand_q, topk_list)
+                           cand_q, topk_list, gkmv_index, gkmv_pairs)
     kernels = []
     for name, r in results.items():
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3

@@ -14,7 +14,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from repro_torch.core.hashing import TWO32, as_u64, to_numpy
+from repro_torch.core.hashing import PAD, TWO32, as_u64, to_numpy
 
 BACKENDS = ("numpy", "torch")
 
@@ -70,6 +70,49 @@ def gkmv_pair_estimate(q_values, q_length, q_thresh,
         (cf / kf.clamp_min(1.0)) * ((kf - 1.0) / u_unit.clamp_min(1e-30)),
         torch.where(k_cap >= 1, cf, torch.zeros_like(cf)))
     return d_hat, k, k_cap
+
+
+def kmv_pair_estimate(q_values, q_length, x_values, x_lengths):
+    """Plain-KMV D̂∩ (Eq. 10) of one query row against m record rows, as
+    torch ops on the rows' device (the reference's jnp program, op for op).
+
+    q_values u32[Cq] and x_values u32[m, C] are each row's smallest hashes,
+    sorted and PAD-filled (int32 bit patterns); q_length and x_lengths
+    i32[m] their lengths. The pair's k is min(k_Q, k_X); U₍k₎ is the k-th
+    smallest distinct value of the union and K∩ the values among those k
+    that both rows hold. Returns (d_hat f32[m], k i32[m], k_cap i32[m]).
+    """
+    m = x_values.shape[0]
+    cq = q_values.shape[0]
+    x_lengths = x_lengths.to(torch.int32)
+    k = torch.clamp_max(x_lengths, int(q_length))                # [m]
+    # The distinct union of the two rows, sorted: concat, sort, dedup mask.
+    # int64 carriers keep the u32 order (PAD sorts last).
+    merged = torch.sort(torch.cat(
+        [as_u64(q_values)[None, :].expand(m, cq), as_u64(x_values)],
+        dim=-1), dim=-1).values                                  # [m, Cq+C]
+    same = merged[:, 1:] == merged[:, :-1]
+    edge = torch.zeros((m, 1), dtype=torch.bool, device=merged.device)
+    dup = torch.cat([edge, same], dim=-1)
+    distinct = ~dup & (merged != int(PAD))
+    rank = torch.cumsum(distinct.to(torch.int32), dim=-1)        # 1-based
+    in_topk = distinct & (rank <= k[:, None])
+    # U₍k₎: the largest of the k smallest distinct values.
+    u = torch.where(in_topk, merged, 0).amax(dim=-1)
+    u_unit = (u.to(torch.float32) + 1.0) / TWO32
+    # K∩ among the k smallest: a value both rows hold (a duplicate pair)
+    # whose first occurrence is in the top k.
+    next_dup = torch.cat([same, edge], dim=-1)
+    kcap = (in_topk & next_dup).sum(-1).to(torch.int32)
+
+    kf = k.to(torch.float32)
+    cf = kcap.to(torch.float32)
+    d_hat = torch.where(
+        (k >= 2) & (kcap >= 1),
+        (cf / k.clamp_min(1).to(torch.float32))
+        * ((kf - 1.0) / u_unit.clamp_min(1e-30)),
+        torch.where(kcap >= 1, cf, torch.zeros_like(cf)))
+    return d_hat, k, kcap
 
 
 def buffer_intersection(q_buf, x_buf) -> torch.Tensor:

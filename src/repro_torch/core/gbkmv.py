@@ -18,13 +18,11 @@ import torch
 
 from repro_torch.core import cost_model
 from repro_torch.core.arena import SketchArena
-from repro_torch.core.gkmv import select_tau_flat
+from repro_torch.core.gkmv import check_build_backend, select_tau_flat
 from repro_torch.core.hashing import hash_u32_np
 from repro_torch.core.sketches import (PackedSketches, RaggedBatch,
                                        make_bitmaps, pack_csr, top_membership)
 from repro_torch.device import resolve_device
-
-BUILD_BACKENDS = ("numpy", "torch")
 
 
 @dataclasses.dataclass
@@ -111,9 +109,7 @@ def build_gbkmv(
       top_elems: pin the buffer element set instead of deriving it from
                 this batch's frequencies (r defaults to its length)
     """
-    if build_backend not in BUILD_BACKENDS:
-        raise ValueError(f"build_backend must be one of {BUILD_BACKENDS}, "
-                         f"got {build_backend!r}")
+    check_build_backend(build_backend)
     batch = (records if isinstance(records, RaggedBatch)
              else RaggedBatch.from_records(records))
     m = batch.num_records

@@ -1,8 +1,11 @@
 """G-KMV: KMV with a global hash threshold (paper §IV-A(2), Theorems 2-3).
 
-Port of the τ selectors and the query packer of ``repro.core.gkmv``. Every
-record keeps all hash values ``h(e) <= τ``; τ is the budget-th smallest
-hash of the whole (record, element) multiset.
+Port of ``repro.core.gkmv``: the τ selectors, the build and the query
+packer. Every record keeps all hash values ``h(e) <= τ``; τ is the
+budget-th smallest hash of the whole (record, element) multiset. The
+build runs on the host (``build_backend="numpy"``: one hash pass, one
+partition, one pack) or fused on the device (``"torch"``, the B2 kernel).
+The reference's per-record oracles stay there: the tests read them.
 """
 
 from __future__ import annotations
@@ -15,8 +18,16 @@ import torch
 from repro_torch.core.hashing import PAD, hash_u32_np
 from repro_torch.core.sketches import (PackedSketches, RaggedBatch,
                                        make_bitmaps, pack_csr, top_membership)
+from repro_torch.device import resolve_device
 
 TAU_MODES = ("exact", "histogram")
+BUILD_BACKENDS = ("numpy", "torch")
+
+
+def check_build_backend(build_backend: str) -> None:
+    if build_backend not in BUILD_BACKENDS:
+        raise ValueError(f"build_backend must be one of {BUILD_BACKENDS}, "
+                         f"got {build_backend!r}")
 
 
 def select_global_threshold(hash_rows: Sequence[np.ndarray],
@@ -53,6 +64,46 @@ def select_tau_flat(hashes: np.ndarray, budget: int,
     return np.uint32(np.partition(hashes, budget - 1)[budget - 1])
 
 
+def build_gkmv(
+    records,
+    budget: int,
+    seed: int = 0,
+    capacity: int | None = None,
+    tau_mode: str = "exact",
+    build_backend: str = "torch",
+    device="cuda",
+):
+    """A G-KMV index (a :class:`repro_torch.core.arena.SketchArena`): every
+    record's hashes filtered at the global τ of ``budget``.
+
+    ``capacity`` optionally caps the row length (rows above it lower their
+    own threshold, ``pack_csr``'s rule). ``build_backend="numpy"`` hashes,
+    selects τ and packs on the host (CPU columns); ``"torch"`` runs the
+    fused device build on ``device``.
+    """
+    from repro_torch.core.arena import SketchArena
+
+    check_build_backend(build_backend)
+    batch = (records if isinstance(records, RaggedBatch)
+             else RaggedBatch.from_records(records))
+    m = batch.num_records
+    if build_backend == "torch":
+        from repro_torch.kernels.hash_threshold import fused_build_columns
+
+        packed, _ = fused_build_columns(
+            batch, np.ones(batch.total, bool), budget, seed=seed,
+            capacity=capacity, tau_mode=tau_mode,
+            device=resolve_device(device))
+        return SketchArena.from_pack(packed)
+    h = hash_u32_np(batch.ids, seed=seed)
+    tau = select_tau_flat(h, budget, tau_mode=tau_mode)
+    keep = h <= tau
+    row = batch.row_index()
+    thr = np.full(m, tau, dtype=np.uint32)
+    return SketchArena.from_pack(pack_csr(
+        h[keep], row[keep], m, thr, batch.sizes, capacity=capacity))
+
+
 def sketch_query_batch(
     queries,
     tau: np.uint32,
@@ -78,3 +129,15 @@ def sketch_query_batch(
     thr = np.full(m, tau, dtype=np.uint32)
     return pack_csr(h[keep], row[keep], m, thr, batch.sizes,
                     bitmaps=bitmaps, capacity=capacity)
+
+
+def sketch_query(
+    q_ids: np.ndarray,
+    tau: np.uint32,
+    seed: int = 0,
+    capacity: int | None = None,
+    top_elems: np.ndarray | None = None,
+) -> PackedSketches:
+    """Sketch one query record at threshold τ (matching an index build)."""
+    return sketch_query_batch([np.asarray(q_ids)], tau, seed=seed,
+                              capacity=capacity, top_elems=top_elems)

@@ -9,7 +9,9 @@ Port of ``repro.kernels.hash_threshold``. :func:`hash_threshold` launches
 hash every tail element (the kernel), select τ, sort to (row, hash) order
 on one composite int64 key, then scatter the packed columns. The only
 host crossing is one two-int read (the largest per-row count, which fixes
-the pack width, and τ); every per-element quantity stays on the device.
+the pack width, and τ; none for plain KMV's ``row_cap`` route, which keeps
+each row's k smallest hashes); every per-element quantity stays on the
+device.
 Bit-identical to the host ``pack_csr`` pipeline: same hashes, same τ
 rule, same order, same capacity-overflow thresholds.
 
@@ -73,18 +75,20 @@ hash_threshold.launches = 0
 
 
 def _fused_hash_sort(ids32, row, seed: int, *, m: int, budget: int,
-                     tau_mode: str):
+                     tau_mode: str, filter_tau: bool = True):
     """Stage 1: hash every element, select τ, sort to row-major order.
 
     Returns (hs, rs, counts, starts, tau) as int64 device tensors: hashes
     and rows sorted by (row asc, hash asc) with τ-dropped elements parked
     on sentinel row ``m`` at the tail, per-row kept counts, their
-    exclusive prefix sum, and τ (0-d).
+    exclusive prefix sum, and τ (0-d). ``filter_tau=False`` (plain KMV)
+    keeps every element and pins τ at PAD − 1; the positional cut is
+    stage 2's.
     """
     n = ids32.numel()
     h32, _ = hash_threshold(ids32, seed)
     h = as_u64(h32)
-    if budget >= n:
+    if not filter_tau or budget >= n:
         tau = torch.tensor(_PAD - 1, dtype=torch.int64, device=h.device)
         keep = torch.ones_like(h, dtype=torch.bool)
     else:
@@ -99,8 +103,9 @@ def _fused_hash_sort(ids32, row, seed: int, *, m: int, budget: int,
     rkey = torch.where(keep, row.to(torch.int64), m)
     hkey = torch.where(keep, h, _PAD)
     # One sort on the composite key is the reference's lexsort((h, row)).
-    # Kept keys are distinct (record rows hold distinct ids); equal keys
-    # among dropped lanes are identical values, so their order is moot.
+    # The key is the whole (row, hash) value, so equal keys are identical
+    # values and the sort's order among them is moot, with or without the
+    # τ filter (the positional cut of plain KMV included).
     key = torch.sort((rkey << 32) | hkey).values
     rs, hs = key >> 32, key & 0xFFFFFFFF
     counts = torch.zeros(m + 1, dtype=torch.int64, device=h.device).index_add_(
@@ -109,34 +114,46 @@ def _fused_hash_sort(ids32, row, seed: int, *, m: int, budget: int,
     return hs, rs, counts, starts, tau
 
 
-def _fused_pack(hs, rs, counts, starts, tau, *, m: int, cap: int):
+def _fused_pack(hs, rs, counts, starts, tau, *, m: int, cap: int,
+                limit: int | None = None, lower_thresh: bool = True):
     """Stage 2: scatter the row-sorted hashes into packed [m, cap] columns.
 
-    A row with more kept hashes than ``cap`` drops its effective threshold
-    to the largest value it packs (``pack_csr``'s capacity-overflow rule).
+    ``limit`` is the kept length of a row: ``cap`` in τ mode, k for plain
+    KMV (whose ``cap`` is k rounded up to the pad multiple). With
+    ``lower_thresh`` a row with more kept hashes than ``cap`` drops its
+    effective threshold to the largest value it packs (``pack_csr``'s
+    capacity-overflow rule); without it every row keeps τ.
     """
+    limit = cap if limit is None else limit
     n = hs.numel()
     pos = torch.arange(n, device=hs.device) - starts[rs]
-    sel = (rs < m) & (pos < cap)
+    sel = (rs < m) & (pos < limit)
     tr = torch.where(sel, rs, m)                 # sentinel row, sliced off
     tp = torch.where(sel, pos, 0)
     values = torch.full((m + 1, cap), -1, dtype=torch.int32, device=hs.device)
     values[tr, tp] = torch.where(sel, as_bits(hs), -1)
-    lengths = torch.clamp_max(counts, cap).to(torch.int32)
-    idx = (starts[:m] + (cap - 1)).clamp(0, n - 1)
-    thresh = torch.where(counts > cap, hs[idx], tau)
+    lengths = torch.clamp_max(counts, limit).to(torch.int32)
+    if lower_thresh:
+        idx = (starts[:m] + (cap - 1)).clamp(0, n - 1)
+        thresh = torch.where(counts > cap, hs[idx], tau)
+    else:
+        thresh = tau.expand(m)
     return values[:m], lengths, as_bits(thresh)
 
 
 def fused_build_columns(batch, tail_mask, budget: int, *, seed: int = 0,
                         capacity: int | None = None, tau_mode: str = "exact",
-                        bitmaps=None, device="cuda"):
+                        bitmaps=None, row_cap: int | None = None,
+                        device="cuda"):
     """Device-path sketch construction: (PackedSketches on ``device``, τ).
 
     ``batch`` is a :class:`repro_torch.core.sketches.RaggedBatch`;
     ``tail_mask`` selects the hashed (non-buffered) elements; ``bitmaps``
-    is the host-built buffer matrix. On a CPU device every step runs as
-    plain torch (the kernel's plain version).
+    is the host-built buffer matrix. ``row_cap`` switches to plain-KMV
+    semantics: every row keeps its k = ``row_cap`` smallest hashes, the
+    width is k rounded up to 8 and τ is PAD − 1, so it never binds. On a
+    CPU device every step runs as plain torch (the kernel's plain
+    version).
     """
     from repro_torch.core.gkmv import TAU_MODES
     from repro_torch.core.sketches import (PackedSketches, _resolve_capacity,
@@ -155,7 +172,8 @@ def fused_build_columns(batch, tail_mask, budget: int, *, seed: int = 0,
         thr_fill = np.uint32(PAD - np.uint32(1))
         pack = pack_csr(np.zeros(0, np.uint32), np.zeros(0, np.int64), m,
                         np.full(m, thr_fill, np.uint32), sizes,
-                        bitmaps=bitmaps, capacity=capacity)
+                        bitmaps=bitmaps,
+                        capacity=capacity if row_cap is None else row_cap)
         return pack.to(device), thr_fill
 
     # uint32 id view with the same wrap rule as hash_u32_np.
@@ -163,13 +181,21 @@ def fused_build_columns(batch, tail_mask, budget: int, *, seed: int = 0,
                       .astype(np.uint32)).to(device)
     row_t = torch.from_numpy(row.astype(np.int32)).to(device)
     hs, rs, counts, starts, tau = _fused_hash_sort(
-        ids32, row_t, seed, m=m, budget=int(budget), tau_mode=tau_mode)
+        ids32, row_t, seed, m=m, budget=int(budget), tau_mode=tau_mode,
+        filter_tau=row_cap is None)
 
-    # The one host crossing: the longest row fixes the pack width.
-    max_count, tau_h = torch.stack([counts.max(), tau]).tolist()
-    cap = _resolve_capacity(max_count, capacity, 8)
-    values, lengths, thresh = _fused_pack(hs, rs, counts, starts, tau,
-                                          m=m, cap=cap)
+    if row_cap is not None:
+        # Plain KMV: the width is known and τ is PAD − 1, so nothing is read.
+        cap, tau_h = _resolve_capacity(int(row_cap), None, 8), _PAD - 1
+        values, lengths, thresh = _fused_pack(
+            hs, rs, counts, starts, tau, m=m, cap=cap, limit=int(row_cap),
+            lower_thresh=False)
+    else:
+        # The one host crossing: the longest row fixes the pack width.
+        max_count, tau_h = torch.stack([counts.max(), tau]).tolist()
+        cap = _resolve_capacity(max_count, capacity, 8)
+        values, lengths, thresh = _fused_pack(hs, rs, counts, starts, tau,
+                                              m=m, cap=cap)
     if bitmaps is None:
         bitmaps = np.zeros((m, 0), np.uint32)
     pack = PackedSketches(values=values, lengths=lengths, thresh=thresh,

@@ -159,7 +159,15 @@ def test_unported_routes_raise(data):
     with pytest.raises(ValueError, match="postings"):
         api.build("gbkmv", recs, budget, postings="always", device="cpu")
     with pytest.raises(ValueError):
-        api.get_engine("gkmv")
+        api.get_engine("lshe")
+    for engine in ("gkmv", "kmv"):
+        other = api.build(engine, recs, budget, device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 5b"):
+            other.insert(recs[:2])
+        with pytest.raises(NotImplementedError, match="slice 5c"):
+            api.build(engine, recs, budget, windowed=True, device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            other.query(queries[0], 0.5, explain=True)
     assert port.batch_query([], 0.5) == []
 
 

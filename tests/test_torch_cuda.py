@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.core import gbkmv
+from repro_torch.core import gbkmv, gkmv, kmv
 from repro_torch.core.arena import DevicePostings
 from repro_torch.core.hashing import (PAD, as_u64, seed_offset, to_numpy,
                                       to_tensor)
@@ -458,6 +458,110 @@ def test_card_pruned_route_answers_like_cpu(cuda_device, tmp_path):
     for a, b in zip(back.batch_query(queries, 0.5, plan="pruned"),
                     card.batch_query(queries, 0.5, plan="pruned")):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The gkmv and kmv engines on the card
+# ---------------------------------------------------------------------------
+
+
+def _sketch_corpus():
+    recs = generate_dataset(m=3000, n_elems=4000, alpha_freq=1.14,
+                            alpha_size=4.95, size_min=10, size_max=300,
+                            seed=11)
+    return recs, int(0.1 * sum(len(r) for r in recs))
+
+
+def _columns_equal(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(a.columns(), b.columns()))
+
+
+@pytest.mark.parametrize("tau_mode", ["exact", "histogram"])
+def test_gkmv_device_build_matches_host_build(cuda_device, tau_mode):
+    recs, budget = _sketch_corpus()
+    host = gkmv.build_gkmv(recs, budget, tau_mode=tau_mode,
+                           build_backend="numpy", device="cpu")
+    before = hash_threshold.launches
+    dev = gkmv.build_gkmv(recs, budget, tau_mode=tau_mode)
+    assert hash_threshold.launches == before + 1
+    assert dev.device.type == "cuda" and dev.buf_words == 0
+    assert _columns_equal(dev, host)
+
+
+def test_score_kernel_at_width_0_on_a_gkmv_index(cuda_device):
+    """B1 with no buffer words ([m, 0] and [Gq, 0] buffers) on a G-KMV
+    index's long rows, through the api's door, against its plain version."""
+    recs, budget = _sketch_corpus()
+    index = api.build("gkmv", recs, budget)
+    x = index.sketches.device_pack(cuda_device)
+    qp = index._query_pack(make_query_workload(recs, 16, seed=2)).to(
+        cuda_device)
+    cols = (x.values, x.thresh, x.buf, qp.values, qp.thresh, qp.buf,
+            qp.sizes)
+    assert x.buf.shape == (len(recs), 0) and qp.buf.shape == (16, 0)
+    before = score_mod.gbkmv_score.launches
+    got = ops.score_index(*cols)
+    assert score_mod.gbkmv_score.launches == before + 1
+    assert torch.equal(got, ref.gbkmv_score_ref(*cols))
+
+
+def test_gkmv_device_pipeline_at_width_0_answers_as_dense(cuda_device):
+    recs, budget = _sketch_corpus()
+    queries = make_query_workload(recs, 16, seed=2)
+    card = api.build("gkmv", recs, budget, postings="eager")
+    cpu = api.build("gkmv", recs, budget, device="cpu")
+    arena = card.sketches
+    qp = card._query_pack(queries)
+    staged = planner_device.stage_query_inputs(arena, qp, device=cuda_device)
+    s = planner_device.pruned_scores(*staged)
+    dense = card.batch_scores(queries)
+    assert np.array_equal(s.cpu().numpy().view(np.uint32),
+                          dense.view(np.uint32))
+    counters = (pm.postings_probe, pm.block_decode, gs_mod.gather_score)
+    before = [c.launches for c in counters]
+    for t in (0.3, 0.5, 0.9):
+        got = card.batch_query(queries, t, plan="pruned")
+        assert card.last_candidate_sizes is None     # the device route
+        for a, b in zip(got, cpu.batch_query(queries, t, plan="dense")):
+            np.testing.assert_array_equal(a, b)
+    assert [c.launches for c in counters] == [before[0] + 3, before[1] + 3,
+                                              before[2]]
+    for q in queries[:4]:
+        for x, y in zip(card.topk(q, 10, plan="pruned"),
+                        cpu.topk(q, 10, plan="dense")):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_kmv_device_build_matches_host_build(cuda_device):
+    recs, budget = _sketch_corpus()
+    for b in (budget, 2 * len(recs), 40 * len(recs)):
+        host = kmv.build_kmv(recs, b, build_backend="numpy", device="cpu")
+        before = hash_threshold.launches
+        dev = kmv.build_kmv(recs, b)
+        assert hash_threshold.launches == before + 1
+        assert dev.device.type == "cuda" and _columns_equal(dev, host)
+
+
+def test_kmv_scores_on_card_equal_cpu(cuda_device):
+    recs, budget = _sketch_corpus()
+    queries = make_query_workload(recs, 16, seed=2)
+    card = api.build("kmv", recs, budget)
+    cpu = api.build("kmv", recs, budget, device="cpu")
+    np.testing.assert_array_equal(card.batch_scores(queries).view(np.uint32),
+                                  cpu.batch_scores(queries).view(np.uint32))
+    counters = (pm.postings_probe, pm.block_decode, gs_mod.gather_score)
+    before = [c.launches for c in counters]
+    for t in (0.5, 0.9):
+        for plan in ("dense", "pruned"):
+            for a, b in zip(card.batch_query(queries, t, plan=plan),
+                            cpu.batch_query(queries, t, plan="dense")):
+                np.testing.assert_array_equal(a, b)
+    for q in queries[:4]:
+        for x, y in zip(card.topk(q, 10, plan="pruned"),
+                        cpu.topk(q, 10, plan="dense")):
+            np.testing.assert_array_equal(x, y)
+    assert [c.launches for c in counters] == before   # no B3, B4 or B5
 
 
 # ---------------------------------------------------------------------------
